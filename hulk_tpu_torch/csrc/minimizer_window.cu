@@ -7,38 +7,62 @@
 // (symmetric k-mers are invalid), x = hash64(canonical)<<8 | uint64(int32
 // span) with span = min(i-w+2, k) sign-extended, and the minimum of x over
 // the trailing w positions; it reports where the position is valid and
-// i >= w-1. The plain PyTorch version is minimizer_window_torch
-// (hulk_tpu_torch/ops/minimizer.py); the two agree bit for bit on every
-// output lane, reported or not.
+// i >= w-1. The plain PyTorch versions are minimizer_window_torch and
+// minimizer_window_packed_torch (hulk_tpu_torch/ops/minimizer.py); they agree
+// bit for bit on every output lane, reported or not.
 //
-// Design: one block per (read, segment of T <= 256 positions). The block
-// stages the codes its segment needs (T + w - 1 + k bytes, with the halo of
-// the window and of the k-mer) in shared memory; each thread builds the two
-// k-mers of one entry from the k codes before it (k <= 31), so no thread
-// carries a rolling state and no position waits for another. The masked
-// entries of the segment and its w-1 halo go to shared memory, and each
-// thread then takes the window minimum of its position from there. Shared
-// memory is about 10 * (T + w) bytes whatever the read length, so L has no
-// cap. Native u64 arithmetic throughout (the TPU kernel needed u32 pairs).
+// Two entries share one scan:
+//   hulk_minimizer_window_packed reads the v2 transfer layout (2-bit codes
+//     [R, L/4], position p in bits 2*(p%4) of byte p/4; N bitmask [R, L/8],
+//     position p in bit 7-(p%8) of byte p/8), so the device step needs no
+//     unpacking pass;
+//   hulk_minimizer_window reads u8 codes [R, L] (0-3 bases, >= 4 an N).
 //
-// Bound: the kernel reads 1 byte of codes and writes 8 + 1 bytes of output
-// per position; a rolling scan needs some 40 u64 operations per position.
-// At the production shape (R = 16384, L = 160) the bytes bound it;
-// chip_smoke.py computes that bound beside the measured time.
+// Design. One block per (group of G reads, segment of P <= 256 positions),
+// about 1024 entries a block. (One warp per read, each warp alone between
+// __syncwarp calls, measured slower on the H100 at the production shape.)
+//  1. Stage: the segment's bases, with the halo of the window (w-1) and of
+//     the k-mer (k+1), go to shared memory as two little-endian bit rows:
+//     2-bit codes (position p at bits 2p) and N flags spread to the same
+//     pitch (bit 2p). Positions before the read are 0 (the reference's left
+//     pad), positions past L are 0, and codes under an N are cleared.
+//  2. Entries, one thread each, O(1) in k: the k+1 positions a=i-k..i are
+//     one 64-bit field of each row (a funnel shift over two words). With G
+//     the codes of i-k+1..i in packed order and N the flags of a..i,
+//       rc  = (~G & mask) | N          (3^4 = 7 sets the low bit of the next
+//                                       slot; the tail term is N's bit 0)
+//       fwd = revpairs(G | N >> 4) >> (64 - 2k)   (4 << 2j sets the low bit
+//                                       of the slot of the base before it)
+//     then canonical, hash64 and span as in the reference.
+//  3. Window minima, O(1) in w (van Herk / Gil-Werman): each thread takes a
+//     block of w entries and writes its suffix minima and prefix minima; the
+//     minimum of entries t..t+w-1 is min(suffix[t], prefix[t+w-1]).
+//  4. Output: two positions a thread, 16-byte stores where aligned.
+// Shared memory is about 17 (P + w) + 16 (P + w + k)/32 bytes a read
+// whatever L is, so L has no cap. Native u64 arithmetic throughout (the TPU
+// kernel needed u32 pairs).
 //
-// Positions at or past a read's length are never trusted: they are masked
-// by the length before any code there is used (the native packer may leave
-// pad bytes uninitialised).
+// Bound: the packed entry reads 3/8 byte of input per position and writes
+// 8 + 1 bytes of output; a rolling scan needs some 40 u64 operations per
+// position (k-mer update, canonical pick, hash64, span, window minimum). At
+// the production shape (R = 16384, L = 160) the operations bound it;
+// chip_smoke.py computes the bound beside the measured time.
+//
+// Positions at or past a read's length are never trusted: an entry there is
+// invalid before any code is read, and a valid entry reads positions <= i.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr unsigned long long kU64Max = ~0ULL;
+typedef unsigned long long u64;
+constexpr u64 kU64Max = ~0ULL;
+constexpr int kThreads = 256;
+constexpr int kMaxSeg = 256;            // positions a segment at most
+constexpr int kEntriesPerBlock = 1024;  // entries of a block's reads
 
-__device__ __forceinline__ unsigned long long hash64(unsigned long long key,
-                                                     unsigned long long m) {
+__device__ __forceinline__ u64 hash64(u64 key, u64 m) {
   key = (~key + (key << 21)) & m;
   key = key ^ (key >> 24);
   key = ((key + (key << 3)) + (key << 8)) & m;
@@ -49,66 +73,220 @@ __device__ __forceinline__ unsigned long long hash64(unsigned long long key,
   return key;
 }
 
-__global__ void minimizer_window_kernel(const uint8_t* __restrict__ codes,
-                                        const int32_t* __restrict__ lengths,
-                                        long long L, int k, int w, int T,
-                                        int nseg,
-                                        unsigned long long* __restrict__ wmin,
-                                        bool* __restrict__ report) {
-  extern __shared__ unsigned long long smem[];
-  const int E = T + w - 1;               // entries: the segment and its halo
-  unsigned long long* xm = smem;         // [E] masked entries
-  uint8_t* vf = reinterpret_cast<uint8_t*>(xm + E);  // [E] entry is valid
-  uint8_t* cs = vf + E;                  // [E + k] codes from base p0-(w-1)-k
+// 64 bits of a little-endian bit row, starting at bit o
+__device__ __forceinline__ u64 field(const u64* row, int o) {
+  const int wi = o >> 6, sh = o & 63;
+  const u64 lo = row[wi] >> sh;
+  return sh ? lo | (row[wi + 1] << (64 - sh)) : lo;
+}
 
-  const long long row = blockIdx.x / nseg;
-  const long long p0 = static_cast<long long>(blockIdx.x % nseg) * T;
-  const long long len = lengths[row];
-  const uint8_t* crow = codes + row * L;
-  const long long base = p0 - (w - 1) - k;  // position of cs[0]
+// the 32 2-bit groups of v in reverse order
+__device__ __forceinline__ u64 reverse_pairs(u64 v) {
+  v = __brevll(v);
+  return ((v >> 1) & 0x5555555555555555ULL) | ((v & 0x5555555555555555ULL) << 1);
+}
 
-  for (int e = threadIdx.x; e < E + k; e += blockDim.x) {
-    const long long g = base + e;
-    // 3 before the read: 3 ^ 3 == 0, the left pad of the rc tail term
-    cs[e] = (g >= 0 && g < L) ? crow[g] : 3;
-  }
-  __syncthreads();
+// bit j of x to bit 2j
+__device__ __forceinline__ u64 spread32(unsigned x) {
+  u64 v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFULL;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFULL;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0FULL;
+  v = (v | (v << 2)) & 0x3333333333333333ULL;
+  return (v | (v << 1)) & 0x5555555555555555ULL;
+}
 
-  const unsigned long long mask = (1ULL << (2 * k)) - 1ULL;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const long long q = p0 - (w - 1) + e;  // position of entry e
-    bool valid = false;
-    unsigned long long x = kU64Max;
-    if (q >= k - 1 && q < len) {
-      // base q - j sits at cs[e + k - j]
-      unsigned long long fwd = 0, rc = 0;
-      for (int j = 0; j < k; ++j) {
-        const unsigned long long c = cs[e + k - j];
-        fwd |= c << (2 * j);
-        rc |= (3ULL ^ c) << (2 * (k - 1) - 2 * j);
-      }
-      rc |= (3ULL ^ static_cast<unsigned long long>(cs[e])) >> 2;
-      fwd &= mask;
-      if (fwd != rc) {
-        valid = true;
-        const unsigned long long canon = fwd > rc ? rc : fwd;
-        const long long span = min(q - (w - 2), static_cast<long long>(k));
-        x = (hash64(canon, mask) << 8) | static_cast<unsigned long long>(span);
+// one byte of the N bitmask (position p%8 in bit 7-p%8) -> 16 bits, bit 2j
+__device__ __forceinline__ uint16_t spread_mask_byte(unsigned m) {
+  unsigned v = __brev(m) >> 24;
+  v = (v | (v << 4)) & 0x0F0Fu;
+  v = (v | (v << 2)) & 0x3333u;
+  return static_cast<uint16_t>((v | (v << 1)) & 0x5555u);
+}
+
+// t / d for small t (t * d < 2^32) without a divide: umulhi(t, ceil(2^32/d))
+struct FastDiv {
+  unsigned d, m;
+  __device__ explicit FastDiv(unsigned d_) : d(d_), m(d_ > 1 ? 0xFFFFFFFFu / d_ + 1u : 0u) {}
+  __device__ unsigned operator()(unsigned t) const { return d > 1 ? __umulhi(t, m) : t; }
+};
+
+struct Tile {
+  int G;      // reads a block
+  int P;      // positions a segment
+  int nseg;   // segments a read
+  int E;      // entries a read: P + w - 1
+  int nw;     // staged 64-bit words a read, each row
+  size_t smem;
+};
+
+Tile make_tile(long long R, long long L, int k, int w) {
+  Tile t;
+  t.nseg = static_cast<int>((L + kMaxSeg - 1) / kMaxSeg);
+  t.P = static_cast<int>((L + t.nseg - 1) / t.nseg);
+  t.E = t.P + w - 1;
+  // words from floor32(p0 - (w-1) - k - 1) to p0 + P - 1, plus one for the
+  // funnel shift's second word
+  t.nw = (t.P - 1 + (w - 1) + k + 1 + 31) / 32 + 2;
+  long long G = kEntriesPerBlock / t.E;
+  if (G < 1) G = 1;
+  if (G > R) G = R;
+  t.G = static_cast<int>(G);
+  t.smem = static_cast<size_t>(t.G) * (16 * t.E + 16 * t.nw + t.E);
+  return t;
+}
+
+template <bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+minimizer_window_kernel(const uint8_t* __restrict__ codes,
+                        const uint8_t* __restrict__ nmask,
+                        const int32_t* __restrict__ lengths, long long R,
+                        long long L, int k, int w, Tile tile,
+                        u64* __restrict__ wmin, bool* __restrict__ report) {
+  extern __shared__ u64 smem[];
+  const int G = tile.G, E = tile.E, nw = tile.nw;
+  u64* xs = smem;                 // [G][E] entries, then prefix minima
+  u64* suf = xs + G * E;          // [G][E] suffix minima
+  u64* cw = suf + G * E;          // [G][nw] 2-bit codes, position p at bit 2p
+  u64* nf = cw + G * nw;          // [G][nw] N flags, position p at bit 2p
+  uint8_t* valid = reinterpret_cast<uint8_t*>(nf + G * nw);  // [G][E]
+
+  const long long r0 = static_cast<long long>(blockIdx.x / tile.nseg) * G;
+  const long long p0 = static_cast<long long>(blockIdx.x % tile.nseg) * tile.P;
+  const int Pe = static_cast<int>(min(static_cast<long long>(tile.P), L - p0));
+  const int Gact = static_cast<int>(min(static_cast<long long>(G), R - r0));
+  if (Pe <= 0) return;
+  const int Ee = Pe + w - 1;
+  // staging base: a multiple of 32 at or below the first halo base - 1
+  const long long sb = ((p0 - (w - 1) - k - 1) >> 5) << 5;
+
+  // 1. stage
+  if (kPacked) {
+    const long long L4 = L / 4, L8 = L / 8;
+    uint8_t* cb = reinterpret_cast<uint8_t*>(cw);
+    uint16_t* nb = reinterpret_cast<uint16_t*>(nf);
+    const FastDiv by_row(nw * 8);
+    for (int t = threadIdx.x; t < G * nw * 8; t += kThreads) {
+      const int g = by_row(t), j = t - g * nw * 8;
+      const long long b = sb / 4 + j, r = r0 + g;
+      cb[t] = (g < Gact && b >= 0 && b < L4) ? codes[r * L4 + b] : 0;
+      if (j < nw * 4) {
+        const long long m = sb / 8 + j;
+        nb[g * nw * 4 + j] = (g < Gact && m >= 0 && m < L8)
+                                 ? spread_mask_byte(nmask[r * L8 + m]) : 0;
       }
     }
-    xm[e] = x;
-    vf[e] = valid;
+  } else {
+    const int lane = threadIdx.x & 31;
+    for (int t = threadIdx.x >> 5; t < G * nw; t += kThreads / 32) {
+      const int g = t / nw, wd = t - g * nw;
+      const long long p = sb + 32LL * wd + lane;
+      const unsigned c = (g < Gact && p >= 0 && p < L) ? codes[(r0 + g) * L + p] : 0u;
+      const unsigned b0 = __ballot_sync(0xFFFFFFFFu, c < 4 && (c & 1));
+      const unsigned b1 = __ballot_sync(0xFFFFFFFFu, c < 4 && (c & 2));
+      const unsigned bn = __ballot_sync(0xFFFFFFFFu, c >= 4);
+      if (lane == 0) {
+        cw[t] = spread32(b0) | (spread32(b1) << 1);
+        nf[t] = spread32(bn);
+      }
+    }
   }
   __syncthreads();
 
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const long long i = p0 + t;
-    if (i >= L) break;
-    unsigned long long m = kU64Max;
-    for (int j = 0; j < w; ++j) m = min(m, xm[t + j]);
-    wmin[row * L + i] = m;
-    report[row * L + i] = vf[t + w - 1] && i >= w - 1;
+  // 2. entries
+  const u64 mask = (1ULL << (2 * k)) - 1ULL;
+  const u64 nlim = (1ULL << (2 * k + 1)) - 1ULL;  // N flags of a..i
+  const FastDiv by_entry(E);
+  for (int t = threadIdx.x; t < Gact * E; t += kThreads) {
+    const int g = by_entry(t), e = t - g * E;
+    const long long q = p0 - (w - 1) + e;
+    u64 x = kU64Max;
+    bool ok = false;
+    if (e < Ee && q >= k - 1 && q < lengths[r0 + g]) {
+      const int o = 2 * static_cast<int>(q - k - sb);
+      const u64 n = field(nf + g * nw, o) & nlim;
+      const u64 c = field(cw + g * nw, o) & ~(n * 3);
+      const u64 gk = (c >> 2) & mask;
+      const u64 rc = (~gk & mask) | n;
+      const u64 fwd = reverse_pairs(gk | (n >> 4)) >> (64 - 2 * k);
+      if (fwd != rc) {
+        ok = true;
+        const u64 canon = fwd < rc ? fwd : rc;
+        const long long span = min(q - (w - 2), static_cast<long long>(k));
+        x = (hash64(canon, mask) << 8) | static_cast<u64>(span);
+      }
+    }
+    xs[t] = x;
+    valid[t] = ok;
   }
+  __syncthreads();
+
+  // 3. suffix and prefix minima over blocks of w entries
+  const int nb = (Ee + w - 1) / w;
+  const FastDiv by_blocks(nb);
+  for (int t = threadIdx.x; t < Gact * nb; t += kThreads) {
+    const int g = by_blocks(t), b = t - g * nb;
+    u64* x = xs + g * E;
+    u64* s = suf + g * E;
+    const int e0 = b * w, e1 = min(e0 + w, Ee);
+    u64 m = kU64Max;
+    for (int e = e1 - 1; e >= e0; --e) {
+      m = min(m, x[e]);
+      s[e] = m;
+    }
+    m = kU64Max;
+    for (int e = e0; e < e1; ++e) {
+      m = min(m, x[e]);
+      x[e] = m;
+    }
+  }
+  __syncthreads();
+
+  // 4. outputs, two positions a thread: the window of entries t..t+w-1 is
+  // min(suffix[t], prefix[t + w - 1])
+  const int npair = (Pe + 1) / 2;
+  const FastDiv by_pairs(npair);
+  for (int t = threadIdx.x; t < Gact * npair; t += kThreads) {
+    const int g = by_pairs(t), h = 2 * (t - g * npair);
+    const u64* pre = xs + g * E + (w - 1);
+    const u64* s = suf + g * E;
+    const uint8_t* v = valid + g * E + (w - 1);
+    const long long i = p0 + h;
+    const long long o = (r0 + g) * L + i;
+    const u64 m0 = min(s[h], pre[h]);
+    const bool f0 = v[h] && i >= w - 1;
+    if (h + 1 < Pe) {
+      const u64 m1 = min(s[h + 1], pre[h + 1]);
+      const bool f1 = v[h + 1] && i + 1 >= w - 1;
+      if ((o & 1) == 0) {
+        *reinterpret_cast<ulonglong2*>(wmin + o) = make_ulonglong2(m0, m1);
+        *reinterpret_cast<uchar2*>(report + o) = make_uchar2(f0, f1);
+      } else {
+        wmin[o] = m0;
+        wmin[o + 1] = m1;
+        report[o] = f0;
+        report[o + 1] = f1;
+      }
+    } else {
+      wmin[o] = m0;
+      report[o] = f0;
+    }
+  }
+}
+
+template <bool kPacked>
+int launch(const void* codes, const void* nmask, const void* lengths,
+           long long R, long long L, int k, int w, void* wmin, void* report,
+           void* stream) {
+  if (R <= 0 || L <= 0) return 0;
+  const Tile tile = make_tile(R, L, k, w);
+  const long long blocks = (R + tile.G - 1) / tile.G * tile.nseg;
+  minimizer_window_kernel<kPacked><<<static_cast<unsigned>(blocks), kThreads,
+                                     tile.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(nmask),
+      static_cast<const int32_t*>(lengths), R, L, k, w, tile,
+      static_cast<u64*>(wmin), static_cast<bool*>(report));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -119,16 +297,15 @@ __global__ void minimizer_window_kernel(const uint8_t* __restrict__ codes,
 extern "C" int hulk_minimizer_window(const void* codes, const void* lengths,
                                      long long R, long long L, int k, int w,
                                      void* wmin, void* report, void* stream) {
-  if (R <= 0 || L <= 0) return 0;
-  const long long nseg = (L + 255) / 256;
-  const int T = static_cast<int>((L + nseg - 1) / nseg);
-  const int threads = (T + 31) / 32 * 32;
-  const int E = T + w - 1;
-  const size_t smem = static_cast<size_t>(E) * 8 + E + E + k;
-  minimizer_window_kernel<<<static_cast<unsigned>(R * nseg), threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lengths),
-      L, k, w, T, static_cast<int>(nseg),
-      static_cast<unsigned long long*>(wmin), static_cast<bool*>(report));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(codes, nullptr, lengths, R, L, k, w, wmin, report, stream);
+}
+
+// The v2 transfer layout: codes2 [R, L/4] u8, mask8 [R, L/8] u8, lengths [R]
+// i32, L % 8 == 0; outputs as hulk_minimizer_window.
+extern "C" int hulk_minimizer_window_packed(const void* codes2, const void* mask8,
+                                            const void* lengths, long long R,
+                                            long long L, int k, int w, void* wmin,
+                                            void* report, void* stream) {
+  if (L % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(codes2, mask8, lengths, R, L, k, w, wmin, report, stream);
 }

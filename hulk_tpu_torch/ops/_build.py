@@ -1,10 +1,11 @@
-"""Build and load the CUDA kernels: one nvcc call compiles every source in
-csrc/ into one shared library with a plain C interface, bound with ctypes.
+"""Build and load the CUDA kernels: one nvcc process per source in csrc/,
+all started together, compiles each to an object; one more links them into
+one shared library with a plain C interface, bound with ctypes.
 
 The library, libhulk_kernels.so, lives in the package's build directory
 (gitignored). It is built once per process, at first use, and again only
-when a source is newer than it. No PyTorch header is compiled, so a build
-takes seconds, not the minutes of torch.utils.cpp_extension.
+when a source or header is newer than it. No PyTorch header is compiled, so
+a build takes seconds, not the minutes of torch.utils.cpp_extension.
 
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without a card need not have nvcc.
@@ -23,11 +24,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict[str, object] = {}
 # what this process's build did: its seconds and ptxas's register/spill
 # lines; None while the library was current
 build_report: tuple[float, str] | None = None
@@ -48,18 +50,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the card's machine")
 
 
-def _build(sources: list[str], so: str) -> None:
+def compile_library(sources: list[str], so: str) -> None:
+    """Compile the CUDA sources into the shared library `so`."""
     global build_report
-    os.makedirs(build_dir(), exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}.so"
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    link = subprocess.run([_nvcc(), "-shared", "-o", f"{tmp}.so", *objs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
-    os.replace(tmp, so)
+    for obj in objs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(f"{tmp}.so", so)
     ptxas = "\n".join(
-        line.strip() for line in proc.stdout.splitlines()
+        line.strip() for log in logs for line in log.splitlines()
         if "registers" in line or "spill" in line or "Compiling entry" in line
     )
     build_report = (time.perf_counter() - t0, ptxas)
@@ -71,12 +84,25 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+            headers = glob.glob(os.path.join(CSRC, "*.cuh"))
             so = os.path.join(build_dir(), "libhulk_kernels.so")
             if not os.path.exists(so) or os.path.getmtime(so) < max(
-                    os.path.getmtime(s) for s in sources):
-                _build(sources, so)
+                    os.path.getmtime(s) for s in sources + headers):
+                compile_library(sources, so)
             _lib = ctypes.CDLL(so)
         return _lib
+
+
+def entry(name: str, argtypes: list):
+    """The C entry `name` of the kernel library, bound once with its
+    argtypes (ctypes.c_void_p for every pointer and the stream)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[name] = fn
+    return fn
 
 
 def check_launch(err: int, what: str) -> None:

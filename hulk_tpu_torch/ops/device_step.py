@@ -2,13 +2,14 @@
 
 Counterpart of hulk_tpu/ops/device_step.py:177-550 (the fused single-sort
 step, its compact row sort and the grouped transfer layout) with the KMV,
-KHF and HMH updates off. Per batch: window minima (the minimizer kernel),
-an adjacent-run prededup, a per-row sort that compacts each row's live lanes
-into compact_width(L, w) slots, ONE global sort of (read_id << vbits |
-value) keys whose adjacent dedup equals per-read distinct, then jump-hash
-binning (the jump kernel) and an int32 scatter-add into the histogram.
-Everything but the two kernels is plain PyTorch, as the reference left it to
-XLA; u64 keys travel as int64 bits (hulk_tpu_torch/_u64.py).
+KHF and HMH updates off. Per batch: window minima straight from the packed
+transfer layout (the minimizer kernel), an adjacent-run prededup, a per-row
+sort that compacts each row's live lanes into compact_width(L, w) slots,
+ONE global sort of (read_id << vbits | value) keys whose adjacent dedup
+equals per-read distinct, then the binning pass (on the card one launch of
+the jump kernel that dedups, hashes and adds into the int32 histogram with
+atomics). Everything but the two kernels is plain PyTorch, as the reference
+left it to XLA; u64 keys travel as int64 bits (hulk_tpu_torch/_u64.py).
 
 The reference picks two branches on the device with lax.cond, which has no
 sync-free PyTorch form: a row that overflows the compact width sends the
@@ -22,8 +23,8 @@ from __future__ import annotations
 import torch
 
 from hulk_tpu_torch._u64 import I64MAX, SENT, usort
-from hulk_tpu_torch.hashes.jumphash import jump_hash
-from hulk_tpu_torch.ops.minimizer import minimizer_window
+from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
+from hulk_tpu_torch.ops.minimizer import minimizer_window_packed
 
 
 def fused_bits_ok(k: int, r: int) -> bool:
@@ -54,22 +55,6 @@ def stream_bucket(r: int, total: int, *, l: int, k: int, w: int) -> int:
     return min(per * r, total)
 
 
-def unpack_codes2(codes2: torch.Tensor, mask8: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
-    """Exact padded codes from the v2 transfer layout (native pack_group2):
-    2-bit codes [.., L/4] (position p in bits 2*(p%4)), N bitmask [.., L/8]
-    (position p in bit 7-(p%8)), lengths [..]. Returns [.., L] uint8: 0..3
-    bases, 4 where the mask bit is set, 5 at and past each read's length."""
-    dev = codes2.device
-    shifts2 = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
-    c = ((codes2[..., None] >> shifts2) & 3).reshape(*codes2.shape[:-1], -1)
-    shifts1 = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
-    m = ((mask8[..., None] >> shifts1) & 1).reshape(*mask8.shape[:-1], -1)
-    c = torch.where(m != 0, 4, c)
-    pos = torch.arange(c.shape[-1], dtype=torch.int32, device=dev)
-    return torch.where(pos >= lengths[..., None], 5, c).to(torch.uint8)
-
-
 def group_views2(flatbuf: torch.Tensor, g: int, r: int, l: int):
     """Slice the flat v2 buffer into codes2 [g, r, l/4], mask8 [g, r, l/8]
     and int32 lengths [g, r] (little-endian u16 on the wire)."""
@@ -82,32 +67,43 @@ def group_views2(flatbuf: torch.Tensor, g: int, r: int, l: int):
     return codes2, mask8, lengths
 
 
-def bin_scatter_keys(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:
-    """Bin a slice of sorted (read_id << vbits | value) keys, dedup adjacent,
-    and scatter-add into the int32 histogram in place."""
+def bin_scatter_keys_torch(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:
+    """Plain version: bin a slice of sorted (read_id << vbits | value) keys,
+    dedup adjacent, and scatter-add into the int32 histogram in place."""
     live = skeys != SENT
     neq = torch.ones_like(live)
     neq[1:] = skeys[1:] != skeys[:-1]
     mask = live & neq
     keys = torch.where(mask, skeys & ((1 << vbits) - 1), 0)
-    bins = jump_hash(keys, hist.shape[0])
+    bins = jump_hash_torch(keys, hist.shape[0])
     hist.index_add_(0, bins.to(torch.int64), mask.to(torch.int32))
 
 
-def stream_step_fused_body(hist: torch.Tensor, codes: torch.Tensor,
-                           lengths: torch.Tensor, *, k: int, w: int,
-                           bucket: int) -> torch.Tensor:
-    """One batch: hist += the binned per-read distinct minimizers of codes
-    [R, L] (in place). Returns the batch's minimizer count (a 0-d int64
-    tensor). Requires fused_bits_ok(k, R)."""
-    R, L = codes.shape
+def bin_scatter_keys(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:
+    """The binning pass: the plain version for CPU tensors, the fused Hopper
+    kernel (dedup, jump hash and histogram atomics in one launch) for CUDA
+    tensors (it raises rather than fall back)."""
+    if skeys.device.type == "cpu":
+        bin_scatter_keys_torch(hist, skeys, vbits)
+        return
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_keys_cuda
+
+    bin_scatter_keys_cuda(hist, skeys, vbits)
+
+
+def sorted_batch_keys(wmin: torch.Tensor, report: torch.Tensor, *, k: int,
+                      w: int, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keys that one batch bins: from its window minima and report mask
+    [R, L], the unsigned-sorted (read_id << (2k+8) | value) keys, cut to the
+    bucket's prefix when the live lanes fit it, and the batch's minimizer
+    count (a 0-d int64 tensor). Requires fused_bits_ok(k, R)."""
+    R, L = wmin.shape
     vbits = 2 * k + 8
-    wmin, report = minimizer_window(codes, lengths, k, w)
     # adjacent-run prededup along positions (an optimisation only: the
     # post-sort dedup is authoritative)
     m = report.clone()
     m[:, 1:] &= ~((wmin[:, 1:] == wmin[:, :-1]) & report[:, :-1])
-    rid = torch.arange(R, dtype=torch.int64, device=codes.device)[:, None] << vbits
+    rid = torch.arange(R, dtype=torch.int64, device=wmin.device)[:, None] << vbits
     m_live = m.sum()
 
     C = compact_width(L, w)
@@ -135,8 +131,7 @@ def stream_step_fused_body(hist: torch.Tensor, codes: torch.Tensor,
     cnt = (live & neq).sum()
     if bucket < flat.numel() and m_live <= bucket:
         skeys = skeys[:bucket]
-    bin_scatter_keys(hist, skeys, vbits)
-    return cnt
+    return skeys, cnt
 
 
 def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
@@ -146,8 +141,8 @@ def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
     accumulating into hist [nbins] int32 and count [] int64 in place."""
     codes2, mask8, lengths = group_views2(flatbuf, g, r, l)
     for i in range(g):
-        codes = unpack_codes2(codes2[i], mask8[i], lengths[i])
-        count += stream_step_fused_body(
-            hist, codes, lengths[i].contiguous(), k=k, w=w, bucket=bucket
-        )
+        wmin, report = minimizer_window_packed(codes2[i], mask8[i], lengths[i], k, w)
+        skeys, cnt = sorted_batch_keys(wmin, report, k=k, w=w, bucket=bucket)
+        bin_scatter_keys(hist, skeys, 2 * k + 8)
+        count += cnt
 

@@ -1,10 +1,14 @@
-"""Wrapper of the Hopper jump-hash kernel (csrc/jump_hash.cu).
+"""Wrappers of the Hopper jump-hash kernel (csrc/jump_hash.cu).
 
 Replaces hulk_tpu/ops/jump_pallas.py:jump_hash_pallas (and its padding
-wrapper jump_hash_tpu: the card needs no lane padding); the plain version is
-hulk_tpu_torch.hashes.jumphash.jump_hash_torch. The wrapper checks its
-inputs, allocates the output, launches on PyTorch's current stream and counts
-its launches in `launches`.
+wrapper jump_hash_tpu: the card needs no lane padding). Two entries share
+the kernel's loop: `jump_hash_cuda` returns every key's bucket (plain
+version hulk_tpu_torch.hashes.jumphash.jump_hash_torch), and
+`bin_scatter_keys_cuda` bins the device step's sorted keys into the
+histogram in one pass, dedup and scatter-add included (the device step's
+main path; plain version hulk_tpu_torch.ops.device_step.
+bin_scatter_keys_torch). Each wrapper checks its inputs, launches on
+PyTorch's current stream and counts its launches in `launches`.
 """
 from __future__ import annotations
 
@@ -15,34 +19,70 @@ import torch
 from hulk_tpu_torch.ops import _build
 
 SOURCE = "hulk_tpu_torch/csrc/jump_hash.cu"
-launches = 0  # launches of the kernel in this process
+# launches of each entry in this process
+launches = {"jump_hash": 0, "bin_scatter_keys": 0}
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+ARGTYPES = {
+    # keys, N, n, out, stream
+    "hulk_jump_hash": [_P, _LL, _LL, _P, _P],
+    # skeys, N, vbits, hist, n, stream
+    "hulk_bin_scatter_keys": [_P, _LL, _I, _P, _LL, _P],
+}
 
 
-def _lib():
-    fn = _build.load().hulk_jump_hash
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    return fn
+def entry(name: str):
+    """The bound C entry (for callers that queue launches themselves)."""
+    return _build.entry(name, ARGTYPES[name])
+
+
+def _check_keys(what: str, keys: torch.Tensor) -> None:
+    if keys.device.type != "cuda":
+        raise ValueError(f"{what}: keys must be on a CUDA device")
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError(f"{what}: keys must be a contiguous 1-D int64 tensor")
+
+
+def _check_buckets(what: str, n: int) -> None:
+    if not 0 < n < 2**31:
+        raise ValueError(f"{what}: the bucket count must be in [1, 2^31), got {n}")
 
 
 def jump_hash_cuda(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """keys [N] int64 (u64 bits), contiguous on a CUDA device -> [N] int32
     buckets in [0, num_buckets)."""
-    global launches
-    if keys.device.type != "cuda":
-        raise ValueError("jump_hash_cuda: keys must be on a CUDA device")
-    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError("jump_hash_cuda: keys must be a contiguous 1-D int64 tensor")
-    if not 0 < num_buckets < 2**31:
-        raise ValueError(f"jump_hash_cuda: num_buckets must be in [1, 2^31), got {num_buckets}")
+    _check_keys("jump_hash_cuda", keys)
+    _check_buckets("jump_hash_cuda", num_buckets)
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
         return out
-    fn = _lib()
+    fn = entry("hulk_jump_hash")
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(keys.data_ptr(), keys.numel(), num_buckets, out.data_ptr(), stream)
     _build.check_launch(err, "jump_hash")
-    launches += 1
+    launches["jump_hash"] += 1
     return out
+
+
+def bin_scatter_keys_cuda(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:
+    """hist [n] int32 += the binned, adjacent-deduplicated live values of the
+    sorted (read_id << vbits | value) keys skeys [N] int64 (u64 bits; the
+    all-ones sentinel marks dead lanes), in place, on one CUDA device."""
+    _check_keys("bin_scatter_keys_cuda", skeys)
+    if hist.device != skeys.device or hist.dtype != torch.int32 or hist.dim() != 1 \
+            or not hist.is_contiguous():
+        raise ValueError("bin_scatter_keys_cuda: hist must be a contiguous 1-D int32 "
+                         "tensor on the keys' device")
+    _check_buckets("bin_scatter_keys_cuda", hist.shape[0])
+    if not 0 < vbits < 64:
+        raise ValueError(f"bin_scatter_keys_cuda: vbits must be in [1, 63], got {vbits}")
+    if skeys.numel() == 0:
+        return
+    fn = entry("hulk_bin_scatter_keys")
+    with torch.cuda.device(skeys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(skeys.data_ptr(), skeys.numel(), vbits, hist.data_ptr(),
+                 hist.shape[0], stream)
+    _build.check_launch(err, "bin_scatter_keys")
+    launches["bin_scatter_keys"] += 1

@@ -15,9 +15,10 @@ Reference quirks reproduced bit-for-bit:
   * X = hash64(canonical)<<8 | uint64(int32(span)), span = min(i-w+2, k),
     sign-extended when k<w makes the span negative (127-131,156-158).
 
-`minimizer_window` is the device step's entry point: it takes the plain
-version for a CPU tensor and the CUDA kernel (ops/minimizer_cuda.py) for a
-CUDA tensor.
+`minimizer_window` (u8 codes) and `minimizer_window_packed` (the v2
+transfer layout, the device step's main path) are the entry points: each
+takes its plain version for a CPU tensor and the CUDA kernel
+(ops/minimizer_cuda.py) for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -88,6 +89,44 @@ def minimizer_window(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_cuda
 
     return minimizer_window_cuda(codes, lengths, k, w)
+
+
+def unpack_codes2(codes2: torch.Tensor, mask8: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Exact padded codes from the v2 transfer layout (native pack_group2):
+    2-bit codes [.., L/4] (position p in bits 2*(p%4)), N bitmask [.., L/8]
+    (position p in bit 7-(p%8)), lengths [..]. Returns [.., L] uint8: 0..3
+    bases, 4 where the mask bit is set, 5 at and past each read's length."""
+    dev = codes2.device
+    shifts2 = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+    c = ((codes2[..., None] >> shifts2) & 3).reshape(*codes2.shape[:-1], -1)
+    shifts1 = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    m = ((mask8[..., None] >> shifts1) & 1).reshape(*mask8.shape[:-1], -1)
+    c = torch.where(m != 0, 4, c)
+    pos = torch.arange(c.shape[-1], dtype=torch.int32, device=dev)
+    return torch.where(pos >= lengths[..., None], 5, c).to(torch.uint8)
+
+
+def minimizer_window_packed_torch(codes2: torch.Tensor, mask8: torch.Tensor,
+                                  lengths: torch.Tensor, k: int,
+                                  w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the packed entry: unpack the v2 transfer layout
+    (codes2 [R, L/4], mask8 [R, L/8], lengths [R]), then
+    minimizer_window_torch."""
+    return minimizer_window_torch(unpack_codes2(codes2, mask8, lengths), lengths, k, w)
+
+
+def minimizer_window_packed(codes2: torch.Tensor, mask8: torch.Tensor,
+                            lengths: torch.Tensor, k: int,
+                            w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Window minima + report mask of the v2 transfer layout: the plain
+    version for CPU tensors, the Hopper kernel for CUDA tensors (it raises
+    rather than fall back)."""
+    if codes2.device.type == "cpu":
+        return minimizer_window_packed_torch(codes2, mask8, lengths, k, w)
+    from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_packed_cuda
+
+    return minimizer_window_packed_cuda(codes2, mask8, lengths, k, w)
 
 
 def short_read_mask(lengths: np.ndarray, k: int, w: int) -> np.ndarray:

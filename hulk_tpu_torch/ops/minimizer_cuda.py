@@ -1,9 +1,12 @@
-"""Wrapper of the Hopper minimizer-window kernel (csrc/minimizer_window.cu).
+"""Wrappers of the Hopper minimizer-window kernel (csrc/minimizer_window.cu).
 
-Replaces hulk_tpu/ops/minimizer_pallas.py:minimizer_window_pallas; the plain
-version is hulk_tpu_torch.ops.minimizer.minimizer_window_torch. The wrapper
-checks its inputs, allocates the outputs, launches on PyTorch's current
-stream and counts its launches in `launches`.
+Replaces hulk_tpu/ops/minimizer_pallas.py:minimizer_window_pallas. Two
+entries share the kernel's scan: `minimizer_window_packed_cuda` reads the v2
+transfer layout (the device step's main path) and `minimizer_window_cuda`
+reads u8 codes. The plain versions are minimizer_window_packed_torch and
+minimizer_window_torch (hulk_tpu_torch.ops.minimizer). Each wrapper checks
+its inputs, allocates the outputs, launches on PyTorch's current stream and
+counts its launches in `launches`.
 """
 from __future__ import annotations
 
@@ -15,42 +18,82 @@ from hulk_tpu_torch.ops import _build
 from hulk_tpu_torch.ops.minimizer import check_kw
 
 SOURCE = "hulk_tpu_torch/csrc/minimizer_window.cu"
-launches = 0  # launches of the kernel in this process
+# launches of each entry in this process
+launches = {"minimizer_window": 0, "minimizer_window_packed": 0}
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+ARGTYPES = {
+    # codes, lengths, R, L, k, w, wmin, report, stream
+    "hulk_minimizer_window": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P],
+    # codes2, mask8, lengths, R, L, k, w, wmin, report, stream
+    "hulk_minimizer_window_packed": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
+}
 
 
-def _lib():
-    fn = _build.load().hulk_minimizer_window
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    return fn
+def entry(name: str):
+    """The bound C entry (for callers that queue launches themselves)."""
+    return _build.entry(name, ARGTYPES[name])
+
+
+def _check(what: str, tensors: dict, lengths: torch.Tensor) -> None:
+    dev = lengths.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"{what}: all inputs must be on one CUDA device")
+    if any(t.dtype != torch.uint8 for t in tensors.values()) or lengths.dtype != torch.int32:
+        raise TypeError(f"{what}: {', '.join(tensors)} must be uint8 and lengths int32")
+    R = lengths.shape[0] if lengths.dim() == 1 else -1
+    if any(t.dim() != 2 or t.shape[0] != R for t in tensors.values()):
+        raise ValueError(f"{what}: {', '.join(tensors)} [R, ..] and lengths [R] expected")
+    if not all(t.is_contiguous() for t in (*tensors.values(), lengths)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _outputs(R: int, L: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((R, L), dtype=torch.int64, device=dev),
+            torch.empty((R, L), dtype=torch.bool, device=dev))
 
 
 def minimizer_window_cuda(codes: torch.Tensor, lengths: torch.Tensor, k: int,
                           w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """codes [R, L] uint8 and lengths [R] int32, contiguous on one CUDA
     device -> (wmin [R, L] int64 of u64 bits, report [R, L] bool)."""
-    global launches
     check_kw(k, w)
-    if codes.device.type != "cuda" or lengths.device != codes.device:
-        raise ValueError("minimizer_window_cuda: codes and lengths must be on one CUDA device")
-    if codes.dtype != torch.uint8 or lengths.dtype != torch.int32:
-        raise TypeError("minimizer_window_cuda: codes must be uint8 and lengths int32")
-    if codes.dim() != 2 or lengths.shape != (codes.shape[0],):
-        raise ValueError("minimizer_window_cuda: codes [R, L] and lengths [R] expected")
-    if not (codes.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("minimizer_window_cuda: inputs must be contiguous")
+    _check("minimizer_window_cuda", {"codes": codes}, lengths)
     R, L = codes.shape
-    wmin = torch.empty((R, L), dtype=torch.int64, device=codes.device)
-    report = torch.empty((R, L), dtype=torch.bool, device=codes.device)
+    wmin, report = _outputs(R, L, codes.device)
     if R == 0 or L == 0:
         return wmin, report
-    fn = _lib()
+    fn = entry("hulk_minimizer_window")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(codes.data_ptr(), lengths.data_ptr(), R, L, k, w,
                  wmin.data_ptr(), report.data_ptr(), stream)
     _build.check_launch(err, "minimizer_window")
-    launches += 1
+    launches["minimizer_window"] += 1
+    return wmin, report
+
+
+def minimizer_window_packed_cuda(codes2: torch.Tensor, mask8: torch.Tensor,
+                                 lengths: torch.Tensor, k: int,
+                                 w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v2 transfer layout: codes2 [R, L/4] and mask8 [R, L/8] uint8,
+    lengths [R] int32, contiguous on one CUDA device -> (wmin [R, L] int64
+    of u64 bits, report [R, L] bool), as minimizer_window_cuda of the
+    unpacked codes."""
+    check_kw(k, w)
+    _check("minimizer_window_packed_cuda", {"codes2": codes2, "mask8": mask8}, lengths)
+    R, L = codes2.shape[0], 4 * codes2.shape[1]
+    if mask8.shape[1] * 8 != L:
+        raise ValueError("minimizer_window_packed_cuda: mask8 must be [R, L/8] for "
+                         "codes2 [R, L/4] with L % 8 == 0")
+    wmin, report = _outputs(R, L, codes2.device)
+    if R == 0 or L == 0:
+        return wmin, report
+    fn = entry("hulk_minimizer_window_packed")
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(codes2.data_ptr(), mask8.data_ptr(), lengths.data_ptr(), R, L, k, w,
+                 wmin.data_ptr(), report.data_ptr(), stream)
+    _build.check_launch(err, "minimizer_window_packed")
+    launches["minimizer_window_packed"] += 1
     return wmin, report

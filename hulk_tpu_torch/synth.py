@@ -43,3 +43,43 @@ def generate(path: str, n_reads: int, read_len: int = 150, seed: int = 0,
             written += n
     os.replace(tmp, path)
     return path
+
+
+def kernel_batch(rng, R: int, L: int, lo: int, hi: int, n_frac=0.01):
+    """One batch for the minimizer kernels: R reads of lengths in [lo, hi]
+    with a share n_frac of N (a scalar, or [R, 1] for one share a read), as
+    u8 codes [R, L] (0-4 in the read, random bytes past it, as uninitialised
+    pad may be) and lengths [R] int32, and the same reads in the v2 transfer
+    layout (native.pack_group2): codes2 [R, L/4] and mask8 [R, L/8] with
+    random bits past each read's length. L % 8 == 0."""
+    from hulk_tpu_torch import native
+
+    codes = np.where(rng.random((R, L)) < n_frac, 4,
+                     rng.integers(0, 4, size=(R, L))).astype(np.uint8)
+    lengths = rng.integers(lo, hi + 1, size=R).astype(np.int32)
+    flat = native.pack_group2([(codes, lengths)], 1, R, L)
+    if flat is None:
+        raise RuntimeError("kernel_batch: the native runtime did not build")
+    codes2 = flat[:R * L // 4].reshape(R, L // 4).copy()
+    mask8 = flat[R * L // 4:R * L // 4 + R * L // 8].reshape(R, L // 8).copy()
+    past = np.arange(L)[None, :] >= lengths[:, None]
+    codes[past] = rng.integers(0, 256, size=int(past.sum()), dtype=np.uint8)
+    pad2 = (past.reshape(R, L // 4, 4) * (3 << (2 * np.arange(4)))).sum(-1).astype(np.uint8)
+    pad1 = (past.reshape(R, L // 8, 8) * (1 << (7 - np.arange(8)))).sum(-1).astype(np.uint8)
+    codes2 = (codes2 & ~pad2) | (rng.integers(0, 256, size=codes2.shape, dtype=np.uint8) & pad2)
+    mask8 = (mask8 & ~pad1) | (rng.integers(0, 256, size=mask8.shape, dtype=np.uint8) & pad1)
+    return codes, lengths, codes2, mask8
+
+
+def sorted_keys(rng, n_keys: int, vbits: int, *, dup_only: bool = False,
+                tail: int = 64):
+    """Sorted (read_id << vbits | value) keys as u64, the input of the
+    binning pass: duplicate runs, read ids high enough to set bit 63, and a
+    tail of all-ones sentinels (dup_only: one key repeated)."""
+    if dup_only:
+        keys = np.full(n_keys, (np.uint64(9000) << np.uint64(vbits)) | np.uint64(12345))
+    else:
+        rid = rng.integers(0, 1 << (64 - vbits), size=n_keys, dtype=np.uint64)
+        val = rng.integers(0, 1 << vbits, size=n_keys, dtype=np.uint64)
+        keys = np.repeat((rid << np.uint64(vbits)) | val, rng.integers(1, 5, size=n_keys))
+    return np.concatenate([np.sort(keys), np.full(tail, 2**64 - 1, dtype=np.uint64)])

@@ -16,6 +16,8 @@ import torch
 from hulk_tpu.ops import device_step as jds
 from hulk_tpu_torch import native
 from hulk_tpu_torch.ops import device_step as tds
+from hulk_tpu_torch.ops.minimizer import unpack_codes2
+from hulk_tpu_torch.synth import sorted_keys
 
 
 def make_group(rng, g, r, l, lo, n_frac=0.02):
@@ -85,7 +87,7 @@ def test_unpack_codes2_matches_reference():
     ref = np.asarray(jds.unpack_codes2(c2, m8, ln))
     t2, tm8, tln = tds.group_views2(torch.from_numpy(flat), 2, 16, 64)
     assert np.array_equal(tln.numpy(), np.asarray(ln))
-    assert np.array_equal(tds.unpack_codes2(t2, tm8, tln).numpy(), ref)
+    assert np.array_equal(unpack_codes2(t2, tm8, tln).numpy(), ref)
 
 
 @pytest.mark.parametrize("L,w", [(160, 9), (96, 5), (64, 1), (2048, 9)])
@@ -96,3 +98,30 @@ def test_sizing_helpers_match_reference(L, w):
             r, r * L, l=L, k=21, w=w)
     for k in (11, 21, 22, 25, 31):
         assert tds.fused_bits_ok(k, 16384) == jds.fused_bits_ok(k, 16384)
+
+
+@pytest.mark.parametrize("kind,n_keys,vbits,nbins", [
+    ("mixed", 3000, 50, 194_481),      # k = 21: bit 63 set for read ids >= 8192
+    ("mixed", 2000, 30, 2000),
+    ("dup_only", 500, 50, 194_481),
+    ("all_sentinel", 0, 50, 1000),
+])
+def test_bin_scatter_keys_matches_reference(kind, n_keys, vbits, nbins):
+    rng = np.random.default_rng(n_keys + vbits)
+    keys = sorted_keys(rng, n_keys, vbits, dup_only=kind == "dup_only")
+    if kind == "mixed":
+        assert (keys[:-64] >> np.uint64(63)).any()
+    ref = np.asarray(jds.bin_scatter_keys(jnp.zeros(nbins, dtype=jnp.int32),
+                                          jnp.asarray(keys), vbits=vbits))
+    hist = torch.zeros(nbins, dtype=torch.int32)
+    tds.bin_scatter_keys(hist, torch.from_numpy(keys.view(np.int64)), vbits)
+    assert np.array_equal(hist.numpy(), ref)
+    assert hist.sum() == len(np.unique(keys[keys != np.uint64(2**64 - 1)]))
+
+
+def test_bin_scatter_cuda_wrapper_refuses_cpu_tensors():
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_keys_cuda
+
+    with pytest.raises(ValueError):
+        bin_scatter_keys_cuda(torch.zeros(10, dtype=torch.int32),
+                              torch.zeros(8, dtype=torch.int64), 50)

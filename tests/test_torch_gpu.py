@@ -50,6 +50,48 @@ def test_jump_kernel_matches_plain(n):
     assert torch.equal(jump_hash_cuda(keys, n), jump_hash_torch(keys, n))
 
 
+# the cases chip_smoke.py holds the packed kernel to (R, L, k, w, lo, hi)
+PACKED_CASES = [(16384, 160, 21, 9, 120, 160), (256, 200, 31, 2, 40, 200),
+                (256, 304, 5, 64, 60, 304), (64, 5000, 21, 9, 100, 5000),
+                (128, 96, 3, 20, 1, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,L,k,w,lo,hi", PACKED_CASES)
+def test_packed_minimizer_kernel_matches_plain(R, L, k, w, lo, hi):
+    from hulk_tpu_torch.ops.minimizer import minimizer_window_packed_torch
+    from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_packed_cuda
+    from hulk_tpu_torch.synth import kernel_batch
+
+    dev = _card()
+    _, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(R + L + k + w), R, L, lo, hi)
+    c2, m8, ln = (torch.from_numpy(a).to(dev) for a in (codes2, mask8, lengths))
+    wm, rep = minimizer_window_packed_cuda(c2, m8, ln, k, w)
+    wm0, rep0 = minimizer_window_packed_torch(c2, m8, ln, k, w)
+    assert torch.equal(rep, rep0)
+    assert torch.equal(wm, wm0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [194481, 2**31 - 1])
+@pytest.mark.parametrize("kind", ["mixed", "all_sentinel", "dup_only"])
+def test_bin_scatter_kernel_matches_plain(kind, n):
+    from hulk_tpu_torch.ops.device_step import bin_scatter_keys_torch
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_keys_cuda
+    from hulk_tpu_torch.synth import sorted_keys
+
+    dev = _card()
+    n_keys = {"mixed": 200_000, "all_sentinel": 0, "dup_only": 5000}[kind]
+    keys = sorted_keys(np.random.default_rng(n_keys), n_keys, 50, dup_only=kind == "dup_only")
+    skeys = torch.from_numpy(keys.view(np.int64)).to(dev)
+    got = torch.zeros(n, dtype=torch.int32, device=dev)
+    bin_scatter_keys_cuda(got, skeys, 50)
+    want = torch.zeros(n, dtype=torch.int32, device=dev)
+    bin_scatter_keys_torch(want, skeys, 50)
+    assert torch.equal(got, want)
+    del got, want
+
+
 @pytest.mark.gpu
 def test_sketch_card_matches_cpu(tmp_path, monkeypatch):
     from hulk_tpu_torch import cli

@@ -1,0 +1,141 @@
+"""The arithmetic of the two Hopper kernels, modelled in NumPy and held
+against the port's plain versions on the CPU.
+
+The CUDA kernels run only on the card, so their own outputs are compared
+with the plain versions there (tests/test_torch_gpu.py, chip_smoke.py).
+These tests check, here, the identities their designs rest on:
+
+* csrc/minimizer_window.cu builds both k-mers of a position from 64-bit
+  fields of the packed rows (codes at bits 2p, N flags spread to bits 2p):
+  rc = (~G & mask) | N and fwd = revpairs(G | N >> 4) >> (64 - 2k), and
+  takes window minima as min(suffix[t], prefix[t + w - 1]) over blocks of w
+  (van Herk / Gil-Werman);
+* csrc/jump_hash.cu replaces the divide by a reciprocal scaled by 2^31,
+  exits when the product p >= n and carries trunc(p) + 1 as a double.
+
+Tolerance: bit-equality (integer arithmetic and IEEE f64 operations rounded
+once each to nearest, the same in NumPy as on the card).
+"""
+import numpy as np
+import pytest
+import torch
+
+from hulk_tpu_torch.hashes.jumphash import jump_hash_np
+from hulk_tpu_torch.ops import minimizer as tm
+
+from test_torch_jump import adversarial_keys
+from test_torch_minimizer import packed_batch
+
+U64 = np.uint64
+MAX = U64(2**64 - 1)
+# 2-bit groups of a byte in reverse order
+_REV_PAIRS = np.array([((b & 3) << 6) | (((b >> 2) & 3) << 4) | (((b >> 4) & 3) << 2) | (b >> 6)
+                       for b in range(256)], dtype=np.uint8)
+
+
+def reverse_pairs(v: np.ndarray) -> np.ndarray:
+    b = _REV_PAIRS[v.byteswap().view(np.uint8)]
+    return b.view(np.uint64)
+
+
+def hash64(key: np.ndarray, m: int) -> np.ndarray:
+    m = U64(m)
+    key = (~key + (key << U64(21))) & m
+    key = key ^ (key >> U64(24))
+    key = ((key + (key << U64(3))) + (key << U64(8))) & m
+    key = key ^ (key >> U64(14))
+    key = ((key + (key << U64(2))) + (key << U64(4))) & m
+    key = key ^ (key >> U64(28))
+    return (key + (key << U64(31))) & m
+
+
+def staged_rows(c2: np.ndarray, m8: np.ndarray):
+    """The kernel's staging: per read, little-endian 64-bit words of 2-bit
+    codes (position p at bit 2p) and of N flags spread to the same pitch,
+    with one word of zeros before position 0 and one after the row."""
+    r, l4 = c2.shape
+    bits = np.unpackbits(m8, axis=1)  # bit 7-(p%8) of byte p/8 -> column p
+    spread = np.zeros((r, 2 * bits.shape[1]), dtype=np.uint8)
+    spread[:, ::2] = bits
+    n16 = np.packbits(spread, axis=1, bitorder="little")
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [np.zeros((r, 8), np.uint8), a, np.zeros((r, 8 + (-a.shape[1]) % 8), np.uint8)], axis=1)
+    return pad(c2).view(np.uint64), pad(n16).view(np.uint64)
+
+
+def field(words: np.ndarray, o: np.ndarray) -> np.ndarray:
+    """64 bits of each row starting at bit o[r, i]."""
+    wi, sh = o >> 6, (o & 63).astype(np.uint64)
+    lo = np.take_along_axis(words, wi, 1) >> sh
+    hi = np.take_along_axis(words, wi + 1, 1) << ((U64(64) - sh) & U64(63))
+    return np.where(sh == 0, lo, lo | hi)
+
+
+def model_minimizer_packed(c2, m8, lengths, k, w):
+    r, l = c2.shape[0], 4 * c2.shape[1]
+    cw, nw = staged_rows(c2, m8)
+    mask, nlim = U64((1 << (2 * k)) - 1), U64((1 << (2 * k + 1)) - 1)
+    q = np.broadcast_to(np.arange(l), (r, l))
+    o = 2 * (np.maximum(q - k, -32) + 32)  # bit of position q - k; word 0 is before the read
+    n = field(nw, o) & nlim
+    c = field(cw, o) & ~(n * U64(3))
+    g = (c >> U64(2)) & mask
+    rc = (~g & mask) | n
+    fwd = reverse_pairs(g | (n >> U64(4))) >> U64(64 - 2 * k)
+    valid = (q >= k - 1) & (q < lengths[:, None]) & (fwd != rc)
+    canon = np.minimum(fwd, rc)
+    span = np.minimum(q - (w - 2), k).astype(np.int64).view(np.uint64)
+    x = np.where(valid, (hash64(canon, int(mask)) << U64(8)) | span, MAX)
+    # van Herk / Gil-Werman over entries e = 0.. (e = position + w - 1)
+    e = np.concatenate([np.full((r, w - 1), MAX), x], axis=1)
+    nblk = -(-e.shape[1] // w)
+    blk = np.concatenate([e, np.full((r, nblk * w - e.shape[1]), MAX)], 1).reshape(r, nblk, w)
+    pre = np.minimum.accumulate(blk, axis=2).reshape(r, -1)
+    suf = np.minimum.accumulate(blk[..., ::-1], axis=2)[..., ::-1].reshape(r, -1)
+    wmin = np.minimum(suf[:, :l], pre[:, w - 1:w - 1 + l])
+    return wmin, valid & (q >= w - 1)
+
+
+@pytest.mark.parametrize("k", [1, 3, 21, 31])
+@pytest.mark.parametrize("w", [1, 2, 9, 64])
+def test_packed_kmer_and_window_identities(k, w):
+    rng = np.random.default_rng(7 * k + w)
+    c2, m8, ln = packed_batch(rng, 16, 160)
+    wm, rep = model_minimizer_packed(c2, m8, ln, k, w)
+    wm0, rep0 = tm.minimizer_window_packed_torch(
+        torch.from_numpy(c2), torch.from_numpy(m8), torch.from_numpy(ln), k, w)
+    assert rep0.numpy().any()
+    assert np.array_equal(rep, rep0.numpy())
+    assert np.array_equal(wm, wm0.numpy().view(np.uint64))
+
+
+def model_jump(keys: np.ndarray, n: int) -> np.ndarray:
+    """csrc/jump_hash.cu's loop: d from its bits, 2^31 * (1/d), exit on the
+    product, trunc(p) + 1 carried as a double."""
+    key = keys.astype(np.uint64).copy()
+    bp1 = np.ones(key.shape)
+    out = np.full(key.shape, -1, dtype=np.int64)
+    live = np.ones(key.shape, dtype=bool)
+    two52 = 4503599627370496.0
+    while live.any():
+        key[live] = key[live] * U64(2862933555777941757) + U64(1)
+        d = (key[live] >> U64(33)) + U64(1)
+        df = (U64(0x4330000000000000) | d).view(np.float64) - two52
+        assert np.array_equal(df, d.astype(np.float64))
+        q = (1.0 / df) * 2147483648.0
+        assert np.array_equal(q, 2147483648.0 / df)
+        p = bp1[live] * q
+        go = p < n
+        idx = np.flatnonzero(live)
+        out[idx[~go]] = bp1[idx[~go]].astype(np.int64) - 1
+        bp1[idx[go]] = np.floor(p[go]) + 1.0  # the kernel: RZ(p + 2^52) - (2^52 - 1)
+        live[idx[~go]] = False
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 2000, 194481, 2**31 - 1])
+def test_jump_loop_identities(n):
+    rng = np.random.default_rng(n)
+    keys = np.concatenate([adversarial_keys(),
+                           rng.integers(0, 2**64 - 1, size=5000, dtype=np.uint64, endpoint=True)])
+    assert np.array_equal(model_jump(keys, n), jump_hash_np(keys, n))

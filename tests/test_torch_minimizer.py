@@ -17,6 +17,7 @@ from hulk_tpu.ops.encode import pack_reads
 from hulk_tpu.ops.minimizer import minimizer_window
 from hulk_tpu.ops.minimizer_pallas import minimizer_window_pallas
 from hulk_tpu_torch.ops import minimizer as tm
+from hulk_tpu_torch.synth import kernel_batch
 
 
 def make_batch(rng, r, l, k, w, kind):
@@ -101,3 +102,44 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         minimizer_window_cuda(torch.zeros((2, 8), dtype=torch.uint8),
                               torch.zeros(2, dtype=torch.int32), 3, 2)
+
+
+def packed_batch(rng, r, l, n_dense_rows=4):
+    """A v2 transfer buffer of r reads padded to l (synth.kernel_batch):
+    ragged lengths, 1% N, a few N-dense rows and one all-N row, random pad
+    bits past each read's length. Returns (codes2, mask8, lengths)."""
+    nf = np.full((r, 1), 0.01)
+    nf[2:2 + n_dense_rows] = 0.5
+    nf[2 + n_dense_rows] = 1.0
+    _, lengths, codes2, mask8 = kernel_batch(rng, r, l, 1, l, n_frac=nf)
+    return codes2, mask8, lengths
+
+
+@pytest.mark.parametrize("k", [3, 21, 31])
+@pytest.mark.parametrize("w", [2, 9, 64])
+def test_packed_matches_xla_window_of_unpacked(k, w):
+    """The packed entry's plain version (minimizer_window_packed_torch, the
+    CPU side of the device step's main path) against the reference's
+    minimizer_window of its own unpack_codes2 of the same buffer."""
+    import jax.numpy as jnp
+
+    from hulk_tpu.ops.device_step import unpack_codes2 as unpack_ref
+
+    rng = np.random.default_rng(100 * k + w)
+    c2, m8, ln = packed_batch(rng, 24, 200)
+    ref_codes = np.asarray(unpack_ref(jnp.asarray(c2), jnp.asarray(m8), jnp.asarray(ln)))
+    wm_ref, rep_ref = minimizer_window(ref_codes, ln, k=k, w=w)
+    wm, rep = tm.minimizer_window_packed(torch.from_numpy(c2), torch.from_numpy(m8),
+                                         torch.from_numpy(ln), k, w)
+    assert rep.numpy().any()
+    assert np.array_equal(rep.numpy(), np.asarray(rep_ref))
+    assert np.array_equal(wm.numpy().view(np.uint64), np.asarray(wm_ref))
+
+
+def test_packed_cuda_wrapper_refuses_cpu_tensors():
+    from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_packed_cuda
+
+    with pytest.raises(ValueError):
+        minimizer_window_packed_cuda(torch.zeros((2, 2), dtype=torch.uint8),
+                                     torch.zeros((2, 1), dtype=torch.uint8),
+                                     torch.zeros(2, dtype=torch.int32), 3, 2)
