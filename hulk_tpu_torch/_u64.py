@@ -34,7 +34,8 @@ def ugt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flip(a) > flip(b)
 
 
-def usort(x: torch.Tensor) -> torch.Tensor:
-    """Sort u64 bit patterns in unsigned order (the sentinel sorts last)."""
-    return flip(torch.sort(flip(x)).values)
+def usort(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sort u64 bit patterns along dim in unsigned order (the sentinel sorts
+    last)."""
+    return flip(torch.sort(flip(x), dim=dim).values)
 

@@ -65,16 +65,16 @@ def build_parser() -> argparse.ArgumentParser:
     ps = sub.add_parser("sketch", help="Create a sketch from a set of reads")
     _add_global_flags(ps)
     ps.add_argument("-f", "--fastq", action="append", default=[], help="FASTQ file(s) to sketch (can also pipe in STDIN)")
-    ps.add_argument("--fasta", action="store_true", help="input is FASTA format (not ported yet)")
+    ps.add_argument("--fasta", action="store_true", help="input is FASTA format")
     ps.add_argument("-w", "--windowSize", type=int, default=9, help="minimizer window size")
     ps.add_argument("-i", "--interval", type=int, default=0, help="size of k-mer sampling interval (0 = no interval)")
     ps.add_argument("-s", "--sketchSize", type=int, default=50, help="size of sketch")
     ps.add_argument("-x", "--decayRatio", type=float, default=1.0, help="decay ratio used for concept drift (1.0 = disabled)")
     ps.add_argument("--stream", action="store_true", help="print sketches to STDOUT after every interval (not ported yet)")
     ps.add_argument("-b", "--bannerLabel", type=str, default="blank", help="adds a label to the sketch object, for use with BANNER")
-    ps.add_argument("--khf", action="store_true", help="also generate a MinHash K-Hash Functions sketch (not ported yet)")
-    ps.add_argument("--kmv", action="store_true", help="also generate a MinHash K-Minimum Values sketch (not ported yet)")
-    ps.add_argument("--hmh", "--hyperminhash", dest="hmh", action="store_true", help="also generate a HyperMinHash sketch (not ported yet)")
+    ps.add_argument("--khf", action="store_true", help="also generate a MinHash K-Hash Functions sketch")
+    ps.add_argument("--kmv", action="store_true", help="also generate a MinHash K-Minimum Values sketch")
+    ps.add_argument("--hmh", "--hyperminhash", dest="hmh", action="store_true", help="also generate a HyperMinHash sketch")
     ps.add_argument("--deviceFlush", "--device-flush", dest="device_flush", action="store_true", help="run the histosketch flush on the device (not ported yet)")
     ps.add_argument("--checkpoint", type=str, default="", help="write a resumable state snapshot after every interval flush (not ported yet)")
     ps.add_argument("--resume", type=str, default="", help="resume a sketch run from a --checkpoint snapshot (not ported yet)")
@@ -149,6 +149,8 @@ def run_sketch(args) -> None:
     log.info("\tnumber of bins in k-mer spectrum: %d", spectrum_size)
     log.info("\tadding KHF sketch: %s", str(args.khf).lower())
     log.info("\tadding KMV sketch: %s", str(args.kmv).lower())
+    if args.hmh:
+        log.info("\tadding HyperMinHash sketch: true")
     log.info("\tdevice: %s", args.device)
 
     cfg = SketchConfig(

@@ -4,7 +4,8 @@
 // Replaces hulk_tpu/ops/jump_pallas.py:jump_hash_pallas (bodies _jump_kernel
 // and _jump_block_body; padding wrapper jump_hash_tpu) and, fused with it,
 // the binning around it in hulk_tpu/ops/device_step.py:bin_scatter_keys
-// (dedup mask, value mask, scatter-add). Go's loop
+// (dedup mask, value mask, scatter-add) and :bin_scatter_slice (sentinel
+// mask, scatter-add). Go's loop
 //   b = j; key = key * 2862933555777941757 + 1;
 //   j = int64(float64(b+1) * (float64(1<<31) / float64((key>>33)+1)))
 // while j < n, exactly, in IEEE f64 with fewer and cheaper operations:
@@ -20,8 +21,8 @@
 // --fmad=false). The TPU kernel emulated the two roundings in u32 integer
 // math because the TPU's f64 divide is not correctly rounded; the card's
 // reciprocal is. The plain PyTorch versions are jump_hash_torch
-// (hulk_tpu_torch/hashes/jumphash.py) and bin_scatter_keys_torch
-// (hulk_tpu_torch/ops/device_step.py).
+// (hulk_tpu_torch/hashes/jumphash.py), bin_scatter_keys_torch and
+// bin_scatter_values_torch (hulk_tpu_torch/ops/device_step.py).
 //
 // Design: a grid-stride loop over the keys with at most 16 blocks of 256
 // threads a SM. Each thread runs ONE loop over iterations: when its key's
@@ -35,7 +36,11 @@
 //   hulk_bin_scatter_keys reads sorted (read_id << vbits | value) keys,
 //     skips the sentinel and a key equal to the one before it without
 //     entering the loop, hashes the value bits and atomically adds 1 to the
-//     int32 histogram (integer atomics commute: the histogram is exact).
+//     int32 histogram (integer atomics commute: the histogram is exact);
+//   hulk_bin_scatter_values does the same for the two-sort step's sorted
+//     values (k >= 23): there equal neighbours come from different reads and
+//     each one counts, so it skips only the sentinel, and it hashes all 64
+//     bits (no read id above them; values reach bit 63 from k = 28).
 //
 // Bound: 8 bytes read per key (plus 4 written per key, or the histogram read
 // and written once), and ~ln(n) + 1 iterations of one f64 reciprocal-divide
@@ -62,7 +67,10 @@ __device__ __forceinline__ double scaled_reciprocal(unsigned d) {
   return __dmul_rn(__drcp_rn(df), kTwo31);
 }
 
-template <bool kFused>
+// what a launch does with its keys
+enum Mode { kBuckets, kDedupKeys, kValues };
+
+template <Mode kMode>
 __global__ void __launch_bounds__(kThreads)
 jump_kernel(const u64* __restrict__ keys, long long N, int n, u64 vmask,
             int32_t* __restrict__ out) {
@@ -76,8 +84,9 @@ jump_kernel(const u64* __restrict__ keys, long long N, int n, u64 vmask,
     if (cur < 0) {  // take the next live key
       for (; next < N; next += stride) {
         const u64 kk = keys[next];
-        if (kFused && (kk == kSentinel || (next > 0 && keys[next - 1] == kk))) continue;
-        key = kFused ? (kk & vmask) : kk;
+        if (kMode != kBuckets && kk == kSentinel) continue;
+        if (kMode == kDedupKeys && next > 0 && keys[next - 1] == kk) continue;
+        key = kMode == kDedupKeys ? (kk & vmask) : kk;
         cur = next;
         break;
       }
@@ -92,10 +101,10 @@ jump_kernel(const u64* __restrict__ keys, long long N, int n, u64 vmask,
       bp1 = __dsub_rn(__dadd_rz(p, kTwo52), kTwo52 - 1.0);
     } else {
       const int b = __double2int_rz(bp1) - 1;
-      if (kFused) {
-        atomicAdd(out + b, 1);
-      } else {
+      if (kMode == kBuckets) {
         out[cur] = b;
+      } else {
+        atomicAdd(out + b, 1);
       }
       cur = -1;
     }
@@ -122,7 +131,7 @@ int grid_for(long long N) {
 extern "C" int hulk_jump_hash(const void* keys, long long N, long long n,
                               void* out, void* stream) {
   if (N <= 0) return 0;
-  jump_kernel<false><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  jump_kernel<kBuckets><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(keys), N, static_cast<int>(n), ~0ULL,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -135,8 +144,21 @@ extern "C" int hulk_jump_hash(const void* keys, long long N, long long n,
 extern "C" int hulk_bin_scatter_keys(const void* skeys, long long N, int vbits,
                                      void* hist, long long n, void* stream) {
   if (N <= 0) return 0;
-  jump_kernel<true><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  jump_kernel<kDedupKeys><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(skeys), N, static_cast<int>(n),
       (1ULL << vbits) - 1ULL, static_cast<int32_t*>(hist));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// svals [N] u64 sorted (the all-ones sentinel last), hist [n] i32, both
+// contiguous on the current device; 1 <= n < 2^31. hist[jump(v, n)] += 1
+// for every value v that is not the sentinel, duplicates included.
+// Launched on `stream`; returns the launch's error.
+extern "C" int hulk_bin_scatter_values(const void* svals, long long N, void* hist,
+                                       long long n, void* stream) {
+  if (N <= 0) return 0;
+  jump_kernel<kValues><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(svals), N, static_cast<int>(n), ~0ULL,
+      static_cast<int32_t*>(hist));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,12 @@
 //     position p in bit 7-(p%8) of byte p/8), so the device step needs no
 //     unpacking pass;
 //   hulk_minimizer_window reads u8 codes [R, L] (0-3 bases, >= 4 an N).
+//     With cont != 0 it scans the continuation blocks of long reads
+//     (hulk_tpu_torch/ops/longread.py): each row overlaps the block before
+//     by w+k-1 bases, so the span is k at every position and reporting
+//     starts at local position w+k-1 (the `cont` form of
+//     hulk_tpu/ops/minimizer.py:minimizer_window, which the Pallas kernel
+//     lacks). `cont` is a kernel argument, uniform across the grid.
 //
 // Design. One block per (group of G reads, segment of P <= 256 positions),
 // about 1024 entries a block. (One warp per read, each warp alone between
@@ -39,7 +45,8 @@
 //     minimum of entries t..t+w-1 is min(suffix[t], prefix[t+w-1]).
 //  4. Output: two positions a thread, 16-byte stores where aligned.
 // Shared memory is about 17 (P + w) + 16 (P + w + k)/32 bytes a read
-// whatever L is, so L has no cap. Native u64 arithmetic throughout (the TPU
+// whatever L is, so L has no cap: long-read blocks of L = 65,536 cut into
+// 256 segments of P = 256 and take at most ~18 KB a block (w = 256). Native u64 arithmetic throughout (the TPU
 // kernel needed u32 pairs).
 //
 // Bound: the packed entry reads 3/8 byte of input per position and writes
@@ -141,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
 minimizer_window_kernel(const uint8_t* __restrict__ codes,
                         const uint8_t* __restrict__ nmask,
                         const int32_t* __restrict__ lengths, long long R,
-                        long long L, int k, int w, Tile tile,
+                        long long L, int k, int w, bool cont, Tile tile,
                         u64* __restrict__ wmin, bool* __restrict__ report) {
   extern __shared__ u64 smem[];
   const int G = tile.G, E = tile.E, nw = tile.nw;
@@ -212,7 +219,7 @@ minimizer_window_kernel(const uint8_t* __restrict__ codes,
       if (fwd != rc) {
         ok = true;
         const u64 canon = fwd < rc ? fwd : rc;
-        const long long span = min(q - (w - 2), static_cast<long long>(k));
+        const long long span = cont ? k : min(q - (w - 2), static_cast<long long>(k));
         x = (hash64(canon, mask) << 8) | static_cast<u64>(span);
       }
     }
@@ -244,6 +251,7 @@ minimizer_window_kernel(const uint8_t* __restrict__ codes,
 
   // 4. outputs, two positions a thread: the window of entries t..t+w-1 is
   // min(suffix[t], prefix[t + w - 1])
+  const long long first = cont ? w + k - 1 : w - 1;  // first reported position
   const int npair = (Pe + 1) / 2;
   const FastDiv by_pairs(npair);
   for (int t = threadIdx.x; t < Gact * npair; t += kThreads) {
@@ -254,10 +262,10 @@ minimizer_window_kernel(const uint8_t* __restrict__ codes,
     const long long i = p0 + h;
     const long long o = (r0 + g) * L + i;
     const u64 m0 = min(s[h], pre[h]);
-    const bool f0 = v[h] && i >= w - 1;
+    const bool f0 = v[h] && i >= first;
     if (h + 1 < Pe) {
       const u64 m1 = min(s[h + 1], pre[h + 1]);
-      const bool f1 = v[h + 1] && i + 1 >= w - 1;
+      const bool f1 = v[h + 1] && i + 1 >= first;
       if ((o & 1) == 0) {
         *reinterpret_cast<ulonglong2*>(wmin + o) = make_ulonglong2(m0, m1);
         *reinterpret_cast<uchar2*>(report + o) = make_uchar2(f0, f1);
@@ -276,15 +284,15 @@ minimizer_window_kernel(const uint8_t* __restrict__ codes,
 
 template <bool kPacked>
 int launch(const void* codes, const void* nmask, const void* lengths,
-           long long R, long long L, int k, int w, void* wmin, void* report,
-           void* stream) {
+           long long R, long long L, int k, int w, bool cont, void* wmin,
+           void* report, void* stream) {
   if (R <= 0 || L <= 0) return 0;
   const Tile tile = make_tile(R, L, k, w);
   const long long blocks = (R + tile.G - 1) / tile.G * tile.nseg;
   minimizer_window_kernel<kPacked><<<static_cast<unsigned>(blocks), kThreads,
                                      tile.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(nmask),
-      static_cast<const int32_t*>(lengths), R, L, k, w, tile,
+      static_cast<const int32_t*>(lengths), R, L, k, w, cont, tile,
       static_cast<u64*>(wmin), static_cast<bool*>(report));
   return static_cast<int>(cudaGetLastError());
 }
@@ -292,12 +300,16 @@ int launch(const void* codes, const void* nmask, const void* lengths,
 }  // namespace
 
 // codes [R, L] u8, lengths [R] i32, wmin [R, L] u64, report [R, L] bool, all
-// contiguous on the current device; launched on `stream`. Returns the CUDA
-// error of the launch (0 when it was accepted).
+// contiguous on the current device; cont != 0 scans continuation blocks of
+// long reads (span k at every position, reports from local position w+k-1).
+// Launched on `stream`. Returns the CUDA error of the launch (0 when it was
+// accepted).
 extern "C" int hulk_minimizer_window(const void* codes, const void* lengths,
                                      long long R, long long L, int k, int w,
-                                     void* wmin, void* report, void* stream) {
-  return launch<false>(codes, nullptr, lengths, R, L, k, w, wmin, report, stream);
+                                     int cont, void* wmin, void* report,
+                                     void* stream) {
+  return launch<false>(codes, nullptr, lengths, R, L, k, w, cont != 0, wmin, report,
+                       stream);
 }
 
 // The v2 transfer layout: codes2 [R, L/4] u8, mask8 [R, L/8] u8, lengths [R]
@@ -307,5 +319,5 @@ extern "C" int hulk_minimizer_window_packed(const void* codes2, const void* mask
                                             long long L, int k, int w, void* wmin,
                                             void* report, void* stream) {
   if (L % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(codes2, mask8, lengths, R, L, k, w, wmin, report, stream);
+  return launch<true>(codes2, mask8, lengths, R, L, k, w, false, wmin, report, stream);
 }

@@ -1,22 +1,33 @@
 """The streaming sketch step on the device, in PyTorch.
 
-Counterpart of hulk_tpu/ops/device_step.py:177-550 (the fused single-sort
-step, its compact row sort and the grouped transfer layout) with the KMV,
-KHF and HMH updates off. Per batch: window minima straight from the packed
-transfer layout (the minimizer kernel), an adjacent-run prededup, a per-row
-sort that compacts each row's live lanes into compact_width(L, w) slots,
-ONE global sort of (read_id << vbits | value) keys whose adjacent dedup
-equals per-read distinct, then the binning pass (on the card one launch of
-the jump kernel that dedups, hashes and adds into the int32 histogram with
-atomics). Everything but the two kernels is plain PyTorch, as the reference
-left it to XLA; u64 keys travel as int64 bits (hulk_tpu_torch/_u64.py).
+Counterpart of hulk_tpu/ops/device_step.py: the fused single-sort step
+(:177-379, with its compact row sort) and the two-sort step (:88-162) over
+the grouped v2 transfer layout, with the KMV, KHF and HMH updates
+(ops/device_sketches.py). Everything but the two kernels is plain PyTorch,
+as the reference left it to XLA; u64 keys travel as int64 bits
+(hulk_tpu_torch/_u64.py).
 
-The reference picks two branches on the device with lax.cond, which has no
+Fused step (read ids pack above the 2k+8 value bits): window minima straight
+from the packed transfer layout (the minimizer kernel), an adjacent-run
+prededup, a per-row sort that compacts each row's live lanes into
+compact_width(L, w) slots, ONE global sort of (read_id << vbits | value)
+keys whose adjacent dedup equals per-read distinct, then the binning pass
+(on the card one launch of the jump kernel that dedups, hashes and adds into
+the int32 histogram with atomics).
+
+Two-sort step (k >= 23 at R = 2048, and every R from k = 28): the same
+window minima, a per-read sort in unsigned order with its distinct values,
+one flat unsigned sort, then the binning pass over the sorted values (on
+the card one launch of the jump kernel's values entry, which counts equal
+neighbours, since they come from different reads).
+
+The reference picks branches on the device with lax.cond, which has no
 sync-free PyTorch form: a row that overflows the compact width sends the
 batch down the full-width branch, and a batch whose live lanes fit the
-static bucket bins only the bucket's prefix of the sorted keys. Here both
-predicates are read back in ONE host sync per batch. Both branches are exact,
-so the histogram and the count do not depend on which one ran.
+static bucket bins only the bucket's prefix of the sorted keys. Here the
+predicates are read back in ONE host sync per batch. Every branch is exact,
+so the histogram, the count and the sketches do not depend on which one
+ran.
 """
 from __future__ import annotations
 
@@ -24,7 +35,13 @@ import torch
 
 from hulk_tpu_torch._u64 import I64MAX, SENT, usort
 from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
-from hulk_tpu_torch.ops.minimizer import minimizer_window_packed
+from hulk_tpu_torch.ops.device_sketches import (
+    SketchStates,
+    hmh_update,
+    khf_update,
+    kmv_update,
+)
+from hulk_tpu_torch.ops.minimizer import minimizer_window_packed, per_read_distinct
 
 
 def fused_bits_ok(k: int, r: int) -> bool:
@@ -91,12 +108,35 @@ def bin_scatter_keys(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> Non
     bin_scatter_keys_cuda(hist, skeys, vbits)
 
 
+def bin_scatter_values_torch(hist: torch.Tensor, svals: torch.Tensor) -> None:
+    """Plain version: bin every live value of a slice of the two-sort
+    step's sorted values (equal neighbours included: they come from
+    different reads) and scatter-add into the int32 histogram in place
+    (hulk_tpu/ops/device_step.py:bin_scatter_slice)."""
+    live = svals != SENT
+    bins = jump_hash_torch(torch.where(live, svals, 0), hist.shape[0])
+    hist.index_add_(0, bins.to(torch.int64), live.to(torch.int32))
+
+
+def bin_scatter_values(hist: torch.Tensor, svals: torch.Tensor) -> None:
+    """The two-sort step's binning pass: the plain version for CPU tensors,
+    the jump kernel's values entry for CUDA tensors (it raises rather than
+    fall back)."""
+    if svals.device.type == "cpu":
+        bin_scatter_values_torch(hist, svals)
+        return
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_values_cuda
+
+    bin_scatter_values_cuda(hist, svals)
+
+
 def sorted_batch_keys(wmin: torch.Tensor, report: torch.Tensor, *, k: int,
-                      w: int, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      w: int, bucket: int) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The keys that one batch bins: from its window minima and report mask
     [R, L], the unsigned-sorted (read_id << (2k+8) | value) keys, cut to the
-    bucket's prefix when the live lanes fit it, and the batch's minimizer
-    count (a 0-d int64 tensor). Requires fused_bits_ok(k, R)."""
+    bucket's prefix when the live lanes fit it; the batch's minimizer count
+    (a 0-d int64 tensor); and the live lanes n_live (a host int: every live
+    key lies in the first n_live). Requires fused_bits_ok(k, R)."""
     R, L = wmin.shape
     vbits = 2 * k + 8
     # adjacent-run prededup along positions (an optimisation only: the
@@ -131,18 +171,81 @@ def sorted_batch_keys(wmin: torch.Tensor, report: torch.Tensor, *, k: int,
     cnt = (live & neq).sum()
     if bucket < flat.numel() and m_live <= bucket:
         skeys = skeys[:bucket]
-    return skeys, cnt
+    return skeys, cnt, m_live
+
+
+def distinct_values(skeys: torch.Tensor, vbits: int) -> torch.Tensor:
+    """The fused step's per-read distinct values, read-grouped: the value
+    bits of each live key that differs from the one before it, SENT
+    elsewhere (the feed of the secondary sketches; hulk_tpu's `finish`,
+    device_step.py:291-296)."""
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    return torch.where(first & (skeys != SENT), skeys & ((1 << vbits) - 1), SENT)
+
+
+def bottom_k_values(vals: torch.Tensor, s: int) -> torch.Tensor:
+    """The s smallest values of a SENT-padded stream, ascending, SENT
+    padded: the value-sorted prefix KMV needs, without sorting the whole
+    stream (hulk_tpu/ops/device_step.py:369-379). Valid while values fit in
+    positive int64, as on the fused step (2k + 8 <= 62)."""
+    vi = torch.where(vals == SENT, I64MAX, vals)
+    if vi.numel() < s:
+        vi = torch.cat([vi, vi.new_full((s - vi.numel(),), I64MAX)])
+    asc = torch.topk(vi, s, largest=False, sorted=True).values
+    return torch.where(asc == I64MAX, SENT, asc)
+
+
+def sorted_batch_values(wmin: torch.Tensor,
+                        report: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The two-sort step (hulk_tpu/ops/device_step.py:stream_step_body): from
+    a batch's window minima and report mask [R, L], each read's distinct
+    values, then ONE flat sort in unsigned order (SENT last). Returns the
+    sorted values and the live count (a host int, the one sync a batch):
+    the live values are exactly the first `count`. The reference bins a
+    static bucket's prefix when the count fits it; knowing the count, the
+    port bins exactly the live prefix."""
+    vals, mask = per_read_distinct(wmin, report)
+    svals = usort(torch.where(mask, vals, SENT).reshape(-1))
+    return svals, int(mask.sum())
+
+
+def update_sketches(states: SketchStates, vals: torch.Tensor, *, ascending: bool) -> None:
+    """Feed a batch's distinct values (SENT for dead lanes) to the sketches
+    that are on. ascending: vals is sorted in unsigned order (the two-sort
+    step), else KMV takes its bottom s first (the fused step)."""
+    if states.kmv is not None:
+        s = states.kmv.shape[0]
+        states.kmv = kmv_update(states.kmv, vals if ascending else bottom_k_values(vals, s))
+    if states.khf is not None:
+        states.khf = khf_update(states.khf, vals)
+    if states.hmh is not None:
+        states.hmh = hmh_update(states.hmh, vals)
 
 
 def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
                     flatbuf: torch.Tensor, *, g: int, r: int, l: int, k: int,
-                    w: int, bucket: int) -> None:
+                    w: int, bucket: int, states: SketchStates | None = None) -> None:
     """Run the g batches of one flat v2 transfer buffer through the step,
-    accumulating into hist [nbins] int32 and count [] int64 in place."""
+    accumulating into hist [nbins] int32, count [] int64 and the sketch
+    states (None when no secondary sketch is on) in place. The fused step when read ids < r pack above the value
+    bits (fused_bits_ok(k, r)), else the two-sort step, as hulk_tpu's
+    _DeviceStream._dispatch_group picks (stream/pipeline.py:239-249); both
+    are exact."""
     codes2, mask8, lengths = group_views2(flatbuf, g, r, l)
+    fused = fused_bits_ok(k, r)
+    vbits = 2 * k + 8
     for i in range(g):
         wmin, report = minimizer_window_packed(codes2[i], mask8[i], lengths[i], k, w)
-        skeys, cnt = sorted_batch_keys(wmin, report, k=k, w=w, bucket=bucket)
-        bin_scatter_keys(hist, skeys, 2 * k + 8)
+        if fused:
+            skeys, cnt, n_live = sorted_batch_keys(wmin, report, k=k, w=w, bucket=bucket)
+            bin_scatter_keys(hist, skeys, vbits)
+            if states is not None:
+                update_sketches(states, distinct_values(skeys[:n_live], vbits),
+                                ascending=False)
+        else:
+            svals, cnt = sorted_batch_values(wmin, report)
+            bin_scatter_values(hist, svals[:cnt])
+            if states is not None:
+                update_sketches(states, svals[:cnt], ascending=True)
         count += cnt
-

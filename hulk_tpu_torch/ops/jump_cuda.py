@@ -1,14 +1,17 @@
 """Wrappers of the Hopper jump-hash kernel (csrc/jump_hash.cu).
 
 Replaces hulk_tpu/ops/jump_pallas.py:jump_hash_pallas (and its padding
-wrapper jump_hash_tpu: the card needs no lane padding). Two entries share
+wrapper jump_hash_tpu: the card needs no lane padding). Three entries share
 the kernel's loop: `jump_hash_cuda` returns every key's bucket (plain
-version hulk_tpu_torch.hashes.jumphash.jump_hash_torch), and
-`bin_scatter_keys_cuda` bins the device step's sorted keys into the
+version hulk_tpu_torch.hashes.jumphash.jump_hash_torch);
+`bin_scatter_keys_cuda` bins the fused step's sorted keys into the
 histogram in one pass, dedup and scatter-add included (the device step's
 main path; plain version hulk_tpu_torch.ops.device_step.
-bin_scatter_keys_torch). Each wrapper checks its inputs, launches on
-PyTorch's current stream and counts its launches in `launches`.
+bin_scatter_keys_torch); `bin_scatter_values_cuda` bins the two-sort
+step's sorted values, every live one, all 64 bits (k >= 23; plain version
+device_step.bin_scatter_values_torch). Each wrapper checks its inputs,
+launches on PyTorch's current stream and counts its launches in
+`launches`.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from hulk_tpu_torch.ops import _build
 
 SOURCE = "hulk_tpu_torch/csrc/jump_hash.cu"
 # launches of each entry in this process
-launches = {"jump_hash": 0, "bin_scatter_keys": 0}
+launches = {"jump_hash": 0, "bin_scatter_keys": 0, "bin_scatter_values": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {
@@ -28,6 +31,8 @@ ARGTYPES = {
     "hulk_jump_hash": [_P, _LL, _LL, _P, _P],
     # skeys, N, vbits, hist, n, stream
     "hulk_bin_scatter_keys": [_P, _LL, _I, _P, _LL, _P],
+    # svals, N, hist, n, stream
+    "hulk_bin_scatter_values": [_P, _LL, _P, _LL, _P],
 }
 
 
@@ -46,6 +51,15 @@ def _check_keys(what: str, keys: torch.Tensor) -> None:
 def _check_buckets(what: str, n: int) -> None:
     if not 0 < n < 2**31:
         raise ValueError(f"{what}: the bucket count must be in [1, 2^31), got {n}")
+
+
+def _check_hist(what: str, hist: torch.Tensor, keys: torch.Tensor) -> None:
+    _check_keys(what, keys)
+    if hist.device != keys.device or hist.dtype != torch.int32 or hist.dim() != 1 \
+            or not hist.is_contiguous():
+        raise ValueError(f"{what}: hist must be a contiguous 1-D int32 tensor on the "
+                         "keys' device")
+    _check_buckets(what, hist.shape[0])
 
 
 def jump_hash_cuda(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -69,12 +83,7 @@ def bin_scatter_keys_cuda(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -
     """hist [n] int32 += the binned, adjacent-deduplicated live values of the
     sorted (read_id << vbits | value) keys skeys [N] int64 (u64 bits; the
     all-ones sentinel marks dead lanes), in place, on one CUDA device."""
-    _check_keys("bin_scatter_keys_cuda", skeys)
-    if hist.device != skeys.device or hist.dtype != torch.int32 or hist.dim() != 1 \
-            or not hist.is_contiguous():
-        raise ValueError("bin_scatter_keys_cuda: hist must be a contiguous 1-D int32 "
-                         "tensor on the keys' device")
-    _check_buckets("bin_scatter_keys_cuda", hist.shape[0])
+    _check_hist("bin_scatter_keys_cuda", hist, skeys)
     if not 0 < vbits < 64:
         raise ValueError(f"bin_scatter_keys_cuda: vbits must be in [1, 63], got {vbits}")
     if skeys.numel() == 0:
@@ -86,3 +95,19 @@ def bin_scatter_keys_cuda(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -
                  hist.shape[0], stream)
     _build.check_launch(err, "bin_scatter_keys")
     launches["bin_scatter_keys"] += 1
+
+
+def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor) -> None:
+    """hist [n] int32 += the binned live values of svals [N] int64 (u64
+    bits, the all-ones sentinel marks dead lanes), every one of them
+    (equal neighbours come from different reads), in place, on one CUDA
+    device."""
+    _check_hist("bin_scatter_values_cuda", hist, svals)
+    if svals.numel() == 0:
+        return
+    fn = entry("hulk_bin_scatter_values")
+    with torch.cuda.device(svals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(svals.data_ptr(), svals.numel(), hist.data_ptr(), hist.shape[0], stream)
+    _build.check_launch(err, "bin_scatter_values")
+    launches["bin_scatter_values"] += 1

@@ -15,17 +15,19 @@ Reference quirks reproduced bit-for-bit:
   * X = hash64(canonical)<<8 | uint64(int32(span)), span = min(i-w+2, k),
     sign-extended when k<w makes the span negative (127-131,156-158).
 
-`minimizer_window` (u8 codes) and `minimizer_window_packed` (the v2
-transfer layout, the device step's main path) are the entry points: each
-takes its plain version for a CPU tensor and the CUDA kernel
-(ops/minimizer_cuda.py) for a CUDA tensor.
+`minimizer_window` (u8 codes, with a `cont` form for the continuation
+blocks of long reads) and `minimizer_window_packed` (the v2 transfer
+layout, the device step's main path) are the entry points: each takes its
+plain version for a CPU tensor and the CUDA kernel (ops/minimizer_cuda.py)
+for a CUDA tensor. `per_read_distinct` turns their output into each read's
+distinct values, as the two-sort step and the long-read scan need.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from hulk_tpu_torch._u64 import SENT, flip, ugt
+from hulk_tpu_torch._u64 import SENT, flip, ugt, usort
 from hulk_tpu_torch.hashes.hash64 import hash64_torch
 
 
@@ -37,14 +39,20 @@ def check_kw(k: int, w: int) -> None:
 
 
 def minimizer_window_torch(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                           w: int) -> tuple[torch.Tensor, torch.Tensor]:
+                           w: int, cont: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch window minima + report mask (the pre-dedup stream).
 
     codes: [R, L] integer base codes (0-3, 4 = N; anything past a read's
     length is ignored, whatever its value). lengths: [R] read lengths.
     Returns wmin [R, L] int64 (u64 bits): the minimum of the masked entries
     over the trailing w positions; report [R, L] bool: where the reference
-    reports the queue front (valid k-mer at i, i >= w-1)."""
+    reports the queue front (valid k-mer at i, i >= w-1).
+
+    cont: the rows are continuation blocks of longer reads (ops/longread.py)
+    that overlap the block before by w+k-1 bases: the span is k at every
+    position and reporting starts at local position w+k-1, where every
+    entry of the window equals the in-context one (the derivation is in
+    hulk_tpu/ops/minimizer.py:minimizer_window's docstring)."""
     check_kw(k, w)
     R, L = codes.shape
     dev = codes.device
@@ -69,26 +77,48 @@ def minimizer_window_torch(codes: torch.Tensor, lengths: torch.Tensor, k: int,
 
     valid = (fwd != rc) & (pos >= k - 1) & in_read
     canonical = torch.where(ugt(fwd, rc), rc, fwd)
-    span = torch.clamp(pos - (w - 2), max=k)  # int64: sign-extended as in Go
+    # int64: sign-extended as in Go
+    span = k if cont else torch.clamp(pos - (w - 2), max=k)
     x = (hash64_torch(canonical, mask) << 8) | span
     xm = torch.where(valid, x, SENT)
 
     # unsigned sliding minimum over the trailing w positions (pad: U64MAX)
     fx = flip(torch.nn.functional.pad(xm, (w - 1, 0), value=SENT))
     wmin = flip(fx.unfold(1, w, 1).amin(dim=2))
-    report = valid & (pos >= w - 1)
+    report = valid & (pos >= (w + k - 1 if cont else w - 1))
     return wmin, report
 
 
 def minimizer_window(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                     w: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     w: int, cont: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Window minima + report mask: the plain version for CPU tensors, the
     Hopper kernel for CUDA tensors (it raises rather than fall back)."""
     if codes.device.type == "cpu":
-        return minimizer_window_torch(codes, lengths, k, w)
+        return minimizer_window_torch(codes, lengths, k, w, cont)
     from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_cuda
 
-    return minimizer_window_cuda(codes, lengths, k, w)
+    return minimizer_window_cuda(codes, lengths, k, w, cont)
+
+
+def per_read_distinct(wmin: torch.Tensor,
+                      report: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's reported values sorted in unsigned order (SENT after them)
+    and the mask of the first of each run of equal values: the per-read
+    distinct set (hulk_tpu/ops/minimizer.py:minimizer_scan, :168-179).
+    Values reach bit 63 from k = 28 on (2k + 8 >= 64), hence the unsigned
+    sort."""
+    svals = usort(torch.where(report, wmin, SENT), dim=1)
+    first = torch.ones_like(report)
+    first[:, 1:] = svals[:, 1:] != svals[:, :-1]
+    return svals, first & (svals != SENT)
+
+
+def minimizer_scan(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                   w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-read distinct minimizer values of u8 codes [R, L]: values [R, L]
+    sorted ascending (unsigned) in each row and the mask of the distinct
+    ones, as hulk_tpu/ops/minimizer.py:minimizer_scan."""
+    return per_read_distinct(*minimizer_window(codes, lengths, k, w))
 
 
 def unpack_codes2(codes2: torch.Tensor, mask8: torch.Tensor,

@@ -1,10 +1,14 @@
 """Wrappers of the Hopper minimizer-window kernel (csrc/minimizer_window.cu).
 
 Replaces hulk_tpu/ops/minimizer_pallas.py:minimizer_window_pallas. Two
-entries share the kernel's scan: `minimizer_window_packed_cuda` reads the v2
-transfer layout (the device step's main path) and `minimizer_window_cuda`
-reads u8 codes. The plain versions are minimizer_window_packed_torch and
-minimizer_window_torch (hulk_tpu_torch.ops.minimizer). Each wrapper checks
+C entries share the kernel's scan: `minimizer_window_packed_cuda` reads the
+v2 transfer layout (the device step's main path) and `minimizer_window_cuda`
+reads u8 codes through hulk_minimizer_window, in its cont form for the
+continuation blocks of long reads (cont=True; counted apart, under
+"minimizer_window_cont"). The Pallas kernel has no cont form (hulk_tpu
+scans long-read blocks with XLA). The
+plain versions are minimizer_window_packed_torch and minimizer_window_torch
+(hulk_tpu_torch.ops.minimizer). Each wrapper checks
 its inputs, allocates the outputs, launches on PyTorch's current stream and
 counts its launches in `launches`.
 """
@@ -19,12 +23,12 @@ from hulk_tpu_torch.ops.minimizer import check_kw
 
 SOURCE = "hulk_tpu_torch/csrc/minimizer_window.cu"
 # launches of each entry in this process
-launches = {"minimizer_window": 0, "minimizer_window_packed": 0}
+launches = {"minimizer_window": 0, "minimizer_window_packed": 0, "minimizer_window_cont": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {
-    # codes, lengths, R, L, k, w, wmin, report, stream
-    "hulk_minimizer_window": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P],
+    # codes, lengths, R, L, k, w, cont, wmin, report, stream
+    "hulk_minimizer_window": [_P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P],
     # codes2, mask8, lengths, R, L, k, w, wmin, report, stream
     "hulk_minimizer_window_packed": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
 }
@@ -54,22 +58,24 @@ def _outputs(R: int, L: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def minimizer_window_cuda(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                          w: int) -> tuple[torch.Tensor, torch.Tensor]:
+                          w: int, cont: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """codes [R, L] uint8 and lengths [R] int32, contiguous on one CUDA
-    device -> (wmin [R, L] int64 of u64 bits, report [R, L] bool)."""
+    device -> (wmin [R, L] int64 of u64 bits, report [R, L] bool); cont as
+    minimizer_window_torch's."""
     check_kw(k, w)
     _check("minimizer_window_cuda", {"codes": codes}, lengths)
     R, L = codes.shape
     wmin, report = _outputs(R, L, codes.device)
     if R == 0 or L == 0:
         return wmin, report
+    name = "minimizer_window_cont" if cont else "minimizer_window"
     fn = entry("hulk_minimizer_window")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(codes.data_ptr(), lengths.data_ptr(), R, L, k, w,
+        err = fn(codes.data_ptr(), lengths.data_ptr(), R, L, k, w, int(cont),
                  wmin.data_ptr(), report.data_ptr(), stream)
-    _build.check_launch(err, "minimizer_window")
-    launches["minimizer_window"] += 1
+    _build.check_launch(err, name)
+    launches[name] += 1
     return wmin, report
 
 

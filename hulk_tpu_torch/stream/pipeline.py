@@ -2,17 +2,20 @@
 
 Counterpart of hulk_tpu/stream/pipeline.py (SketchConfig, the single-device
 _DeviceStream and run_sketch_pipeline) on one PyTorch device. The native
-parser feeds fixed-shape batches; groups of GROUP batches are packed into
-one pinned host buffer (native pack_group2), copied to the device once, and
-stepped batch by batch (ops/device_step.py) into an int32 histogram that
-stays on the device until an interval boundary or the end, where the exact
-host flush (native, bit-identical to the reference) turns it into the
-histosketch. Interval boundaries are global read indices, as in the
-reference, so the output does not depend on batching or on the device.
+parser feeds fixed-shape batches of FASTQ reads or FASTA records; groups of
+GROUP batches are packed into one pinned host buffer (native pack_group2),
+copied to the device once, and stepped batch by batch (ops/device_step.py)
+into an int32 histogram and the KMV/KHF/HMH states, which stay on the
+device: the histogram until an interval boundary or the end, where the
+exact host flush (native, bit-identical to the reference) turns it into the
+histosketch, the secondary sketches until the end. A read of 65,536 bases
+or more arrives alone (LongRead) and is scanned block by block
+(ops/longread.py) into the host spectrum and sketch objects. Interval
+boundaries are global read indices, as in the reference, so the output does
+not depend on batching or on the device.
 
-What this slice of the port does not take raises PipelineError: FASTA,
-KMV/KHF/HMH, reads of 65,536 bases or more, --checkpoint/--resume,
---stream, --deviceFlush, and k too large for the fused single-sort step.
+What this slice of the port does not take raises PipelineError:
+--checkpoint/--resume, --stream and --deviceFlush.
 """
 from __future__ import annotations
 
@@ -24,13 +27,17 @@ import numpy as np
 import torch
 
 from hulk_tpu_torch.io.sketchio import HULKData
+from hulk_tpu_torch.ops.device_sketches import SketchStates
 from hulk_tpu_torch.ops.device_step import (
     fused_bits_ok,
     group_scan_body,
     stream_bucket,
 )
+from hulk_tpu_torch.ops.longread import long_read_minimizers
 from hulk_tpu_torch.ops.minimizer import short_read_mask
 from hulk_tpu_torch.sketch.histosketch import HistoSketch
+from hulk_tpu_torch.sketch.hyperminhash import HyperMinHash
+from hulk_tpu_torch.sketch.minhash import KHFSketch, KMVSketch
 from hulk_tpu_torch.sketch.spectrum import KmerSpectrum
 from hulk_tpu_torch.stream.fastq import (
     LongRead,
@@ -72,8 +79,9 @@ class SketchConfig:
         return self.spectrum_size if self.spectrum_size else self.kmer_size ** 4
 
     def resolved_batch_size(self) -> int:
-        """The largest power-of-two R (<= 16384, >= 2048) whose read ids
-        still pack above the value bits of the fused step's sort key."""
+        """The largest power-of-two R (<= 16384) whose read ids still pack
+        above the value bits of the fused step's sort key; 2048 where none
+        does (k >= 23), which takes the two-sort step."""
         if self.batch_size:
             return self.batch_size
         r = 16384
@@ -97,8 +105,6 @@ class PipelineError(ValueError):
 def _not_ported(cfg: SketchConfig, on_interval) -> str | None:
     """The first option of cfg that this slice of the port does not take."""
     for on, what in [
-        (cfg.fasta, "FASTA input"),
-        (cfg.kmv or cfg.khf or cfg.hmh, "KMV/KHF/HMH sketches"),
         (cfg.checkpoint_path or cfg.resume_from, "--checkpoint/--resume"),
         (on_interval is not None, "--stream"),
         (cfg.device_flush, "--deviceFlush"),
@@ -109,7 +115,8 @@ def _not_ported(cfg: SketchConfig, on_interval) -> str | None:
 
 
 class _DeviceStream:
-    """Device-resident histogram (int32) and minimizer count (int64).
+    """Device-resident histogram (int32), minimizer count (int64) and the
+    KMV/KHF/HMH states of the sketches that are on.
 
     Batches are staged on the host in groups of GROUP and shipped as one
     pinned v2 buffer (2-bit codes + N bitmask + u16 lengths) per group with
@@ -126,6 +133,11 @@ class _DeviceStream:
         self.R = cfg.resolved_batch_size()
         self.hist = torch.zeros(nbins, dtype=torch.int32, device=self.device)
         self.count = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.states = (
+            SketchStates.empty(cfg.sketch_size, kmv=cfg.kmv, khf=cfg.khf, hmh=cfg.hmh,
+                               device=self.device)
+            if cfg.kmv or cfg.khf or cfg.hmh else None
+        )
         self._staged: list = []
         self._staged_l = None
 
@@ -160,6 +172,7 @@ class _DeviceStream:
             g=g, r=r, l=l, k=cfg.kmer_size, w=cfg.window_size,
             bucket=stream_bucket(r, r * l, l=l, k=cfg.kmer_size,
                                  w=cfg.window_size),
+            states=self.states,
         )
 
     def minimizer_total(self) -> int:
@@ -173,6 +186,22 @@ class _DeviceStream:
         if h.any():
             spectrum.add_dense(h)
             self.hist.zero_()
+
+    def collect(self, kmv, khf, hmh) -> None:
+        """Merge the device states into the host objects (bottom-s union,
+        elementwise minimum, register maximum: each sketch's exact merge, so
+        the host's own long-read values survive)."""
+        self._flush_staged()
+        st = self.states
+        u64 = lambda t: t.cpu().numpy().view(np.uint64)  # noqa: E731
+        if kmv is not None:
+            vals = u64(st.kmv)
+            vals = vals[vals != np.uint64(0xFFFFFFFFFFFFFFFF)]
+            kmv._values = np.sort(np.concatenate([kmv._values, vals]))[: self.cfg.sketch_size]
+        if khf is not None:
+            khf.sketch = np.minimum(khf.sketch, u64(st.khf))
+        if hmh is not None:
+            hmh.registers = np.maximum(hmh.registers, u64(st.hmh))
 
 
 def run_sketch_pipeline(
@@ -189,12 +218,6 @@ def run_sketch_pipeline(
     missing = _not_ported(cfg, on_interval)
     if missing:
         raise PipelineError(f"{missing} is not ported to hulk_tpu_torch yet")
-    if not fused_bits_ok(k, cfg.resolved_batch_size()):
-        raise PipelineError(
-            f"k={k} needs the two-sort step, which is not ported to "
-            "hulk_tpu_torch yet (the fused step packs read ids above 2k+8 "
-            "value bits)"
-        )
     if torch.device(cfg.device).type == "cuda" and not torch.cuda.is_available():
         raise PipelineError(
             f"device {cfg.device!r} requested but no CUDA device is available "
@@ -207,6 +230,9 @@ def run_sketch_pipeline(
     nbins = cfg.resolved_spectrum_size()
     spectrum = KmerSpectrum(nbins)
     hs = HistoSketch(k, cfg.sketch_size, nbins, cfg.decay_ratio)
+    kmv = KMVSketch(k, cfg.sketch_size) if cfg.kmv else None
+    khf = KHFSketch(k, cfg.sketch_size) if cfg.khf else None
+    hmh = HyperMinHash(k) if cfg.hmh else None
     dev = _DeviceStream(cfg, nbins)
 
     def flush():
@@ -223,7 +249,7 @@ def run_sketch_pipeline(
             raise PipelineError("no input: give reads or cfg.input_paths")
         batches = batch_reads_native(
             cfg.input_paths, batch_size=cfg.resolved_batch_size(),
-            cut_every=cut, raw=True,
+            cut_every=cut, fasta=cfg.fasta, raw=True,
         )
     else:
         batches = batch_reads(
@@ -233,20 +259,34 @@ def run_sketch_pipeline(
 
     seq_count = 0
     length_total = 0
+    minimizer_count = 0
     next_report = 100_000
     for batch in batches:
         if isinstance(batch, LongRead):
-            raise PipelineError(
-                "reads of 65,536 bases or more (the blockwise long-read "
-                "scan) are not ported to hulk_tpu_torch yet"
-            )
-        active = batch.lengths > 0
-        if (short_read_mask(batch.lengths, k, w) & active).any():
-            raise PipelineError("sequence length must be >= w + k - 1")
-        dev.feed(batch)
-        n_in_batch = int(active.sum())
-        seq_count += n_in_batch
-        length_total += int(batch.lengths.sum())
+            # past the batched path's length cap: the blockwise scan, into
+            # the host spectrum and sketch objects (hulk_tpu's pipeline.py
+            # :1023-1052); the device states merge with them at the end
+            L = int(batch.codes.shape[0])
+            if L < w + k - 1:
+                raise PipelineError("sequence length must be >= w + k - 1")
+            flat = long_read_minimizers(batch.codes, k=k, w=w, device=dev.device)
+            minimizer_count += int(flat.shape[0])
+            if flat.shape[0]:
+                spectrum.add_hashes(flat)
+                for obj in (kmv, khf, hmh):
+                    if obj is not None:
+                        obj.add_hashes(flat)
+            n_in_batch = 1
+            seq_count += 1
+            length_total += L
+        else:
+            active = batch.lengths > 0
+            if (short_read_mask(batch.lengths, k, w) & active).any():
+                raise PipelineError("sequence length must be >= w + k - 1")
+            dev.feed(batch)
+            n_in_batch = int(active.sum())
+            seq_count += n_in_batch
+            length_total += int(batch.lengths.sum())
         while seq_count >= next_report:
             log.info("\tprocessed %d sequences", next_report)
             next_report += 100_000
@@ -257,13 +297,16 @@ def run_sketch_pipeline(
 
     log.info("generating final histosketch of k-mer spectra...")
     dev.drain_into(spectrum)
-    minimizer_count = dev.minimizer_total()
+    dev.collect(kmv, khf, hmh)
+    minimizer_count += dev.minimizer_total()
     flush()
     if seq_count == 0:
         raise PipelineError("no sequences received")
 
     hulk_data = HULKData(filename=cfg.file_name, banner=cfg.banner_label)
-    hulk_data.add(hs)
+    for obj in (hs, kmv, khf, hmh):
+        if obj is not None:
+            hulk_data.add(obj)
     return SketchResult(
         hulk_data=hulk_data,
         seq_count=seq_count,

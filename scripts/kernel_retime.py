@@ -8,7 +8,8 @@ Builds this tree's kernels and the other tree's (nvcc, as ops/_build.py
 does) and times, on the main path's production batch (16,384 reads of up to
 160 bases, seed 0, k=21, w=9, 194,481 bins), every C entry each library has,
 in the order other, this, this, other:
-  hulk_minimizer_window (u8 codes, after the plain unpack_codes2 pass),
+  hulk_minimizer_window (u8 codes, after the plain unpack_codes2 pass; its
+  cont argument, 0 here, is passed where the other source declares it),
   hulk_minimizer_window_packed (the v2 transfer layout), hulk_jump_hash (the
   batch's masked values) and hulk_bin_scatter_keys (its sorted keys), and
   the PyTorch calls the other path needs around them (unpack_codes2, the
@@ -55,13 +56,17 @@ def main() -> int:
     other_so = os.path.join(_build.build_dir(), "other", "libhulk_kernels.so")
     _build.compile_library(sorted(glob.glob(os.path.join(args.other, "*.cu"))), other_so)
     libs = {"other": ctypes.CDLL(other_so), "this": _build.load()}
+    # the u8 entry took no cont argument before the cont form existed
+    with open(os.path.join(args.other, "minimizer_window.cu")) as fh:
+        takes_cont = {"other": "int cont, void* wmin" in fh.read(), "this": True}
 
-    def bind(lib, name):
+    def bind(lib, name, cont=True):
         if not hasattr(lib, name):
             return None
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = {**MIN_ARGS, **JUMP_ARGS}[name]
+        argtypes = {**MIN_ARGS, **JUMP_ARGS}[name]
+        fn.argtypes = argtypes if cont else argtypes[:6] + argtypes[7:]
         return fn
 
     dev = torch.device("cuda", 0)
@@ -82,14 +87,14 @@ def main() -> int:
 
     for name in ("other", "this", "this", "other"):
         lib = libs[name]
-        f_u8 = bind(lib, "hulk_minimizer_window")
+        f_u8 = bind(lib, "hulk_minimizer_window", takes_cont[name])
         f_pk = bind(lib, "hulk_minimizer_window_packed")
         f_jump = bind(lib, "hulk_jump_hash")
         f_bin = bind(lib, "hulk_bin_scatter_keys")
         record(f"{name} unpack_codes2 (plain, device)",
                cs.device_ms(lambda: unpack_codes2(c2, m8, ln)))
-        a_u8 = (codes.data_ptr(), ln.data_ptr(), R, L, k, w, wm.data_ptr(), rep.data_ptr(),
-                stream)
+        a_u8 = (codes.data_ptr(), ln.data_ptr(), R, L, k, w, *([0] if takes_cont[name] else []),
+                wm.data_ptr(), rep.data_ptr(), stream)
         record(f"{name} hulk_minimizer_window (u8)", cs.device_ms(lambda: f_u8(*a_u8)))
         if f_pk is not None:
             a_pk = (c2.data_ptr(), m8.data_ptr(), ln.data_ptr(), R, L, k, w, wm.data_ptr(),
@@ -99,7 +104,7 @@ def main() -> int:
         if ref is None:
             ref = (wm.clone(), rep.clone())
             bucket = stream_bucket(R, R * L, l=L, k=k, w=w)
-            skeys, _ = sorted_batch_keys(wm, rep, k=k, w=w, bucket=bucket)
+            skeys, _, _ = sorted_batch_keys(wm, rep, k=k, w=w, bucket=bucket)
         elif not (torch.equal(wm, ref[0]) and torch.equal(rep, ref[1])):
             raise SystemExit(f"FAIL {name}: window minima differ between the builds")
 

@@ -22,7 +22,7 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,L,k,w", [(2048, 160, 21, 9), (64, 300, 31, 2),
-                                     (64, 300, 5, 64), (8, 3000, 21, 9)])
+                                     (64, 300, 5, 64), (8, 3000, 21, 9), (1, 65536, 21, 9)])
 def test_minimizer_kernel_matches_plain(R, L, k, w):
     from hulk_tpu_torch.ops.minimizer import minimizer_window_torch
     from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_cuda
@@ -50,21 +50,25 @@ def test_jump_kernel_matches_plain(n):
     assert torch.equal(jump_hash_cuda(keys, n), jump_hash_torch(keys, n))
 
 
-# the cases chip_smoke.py holds the packed kernel to (R, L, k, w, lo, hi)
-PACKED_CASES = [(16384, 160, 21, 9, 120, 160), (256, 200, 31, 2, 40, 200),
-                (256, 304, 5, 64, 60, 304), (64, 5000, 21, 9, 100, 5000),
-                (128, 96, 3, 20, 1, 96)]
+# the cases chip_smoke.py holds the packed kernel to (R, L, k, w, lo, hi,
+# rows with a read): the production batch, corners, and the FASTA path's
+# top length bucket at its most rows and padded with empty rows
+PACKED_CASES = [(16384, 160, 21, 9, 120, 160, 16384), (256, 200, 31, 2, 40, 200, 256),
+                (256, 304, 5, 64, 60, 304, 256), (64, 5000, 21, 9, 100, 5000, 64),
+                (128, 96, 3, 20, 1, 96, 128), (512, 65536, 21, 9, 16385, 65536, 512),
+                (64, 65536, 21, 9, 16385, 65536, 5)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,L,k,w,lo,hi", PACKED_CASES)
-def test_packed_minimizer_kernel_matches_plain(R, L, k, w, lo, hi):
+@pytest.mark.parametrize("R,L,k,w,lo,hi,live", PACKED_CASES)
+def test_packed_minimizer_kernel_matches_plain(R, L, k, w, lo, hi, live):
     from hulk_tpu_torch.ops.minimizer import minimizer_window_packed_torch
     from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_packed_cuda
     from hulk_tpu_torch.synth import kernel_batch
 
     dev = _card()
-    _, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(R + L + k + w), R, L, lo, hi)
+    _, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(R + L + k + w), R, L, lo, hi,
+                                             live=live)
     c2, m8, ln = (torch.from_numpy(a).to(dev) for a in (codes2, mask8, lengths))
     wm, rep = minimizer_window_packed_cuda(c2, m8, ln, k, w)
     wm0, rep0 = minimizer_window_packed_torch(c2, m8, ln, k, w)
@@ -93,6 +97,68 @@ def test_bin_scatter_kernel_matches_plain(kind, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,w,live", [(21, 9, 16), (31, 2, 16), (21, 9, 3)])
+def test_cont_minimizer_kernel_matches_plain(k, w, live):
+    """The cont form on long-read blocks [16, 65536], random pad; with 3
+    live rows, as a contig of up to 200 kb fills a group."""
+    from hulk_tpu_torch.ops.minimizer import minimizer_window_torch
+    from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_cuda
+    from hulk_tpu_torch.synth import kernel_batch
+
+    dev = _card()
+    codes, lengths, _, _ = kernel_batch(np.random.default_rng(k + w), 16, 65536, 100, 65536,
+                                        live=live)
+    c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
+    wm, rep = minimizer_window_cuda(c, ln, k, w, cont=True)
+    wm0, rep0 = minimizer_window_torch(c, ln, k, w, cont=True)
+    assert rep0.any()
+    assert torch.equal(rep, rep0)
+    assert torch.equal(wm, wm0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 923521, 2**31 - 1])
+@pytest.mark.parametrize("kind", ["mixed", "all_sentinel", "one_key"])
+def test_bin_scatter_values_kernel_matches_plain(kind, n):
+    from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_values_cuda
+    from hulk_tpu_torch.synth import sorted_values
+
+    dev = _card()
+    n_vals = {"mixed": 200_000, "all_sentinel": 0, "one_key": 5000}[kind]
+    vals = sorted_values(np.random.default_rng(n_vals), n_vals, one_key=kind == "one_key")
+    svals = torch.from_numpy(vals.view(np.int64)).to(dev)
+    got = torch.zeros(n, dtype=torch.int32, device=dev)
+    bin_scatter_values_cuda(got, svals)
+    want = torch.zeros(n, dtype=torch.int32, device=dev)
+    bin_scatter_values_torch(want, svals)
+    assert int(want.sum()) == int((vals != np.uint64(2**64 - 1)).sum())
+    assert torch.equal(got, want)
+    del got, want
+
+
+@pytest.mark.gpu
+def test_two_sort_batch_values_kernel_matches_plain():
+    """The values entry on a k=31 two-sort batch (values reach bit 63)."""
+    from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch, sorted_batch_values
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_values_cuda
+    from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_packed_cuda
+    from hulk_tpu_torch.synth import kernel_batch
+
+    dev = _card()
+    _, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(31), 2048, 160, 120, 160)
+    c2, m8, ln = (torch.from_numpy(a).to(dev) for a in (codes2, mask8, lengths))
+    svals, cnt = sorted_batch_values(*minimizer_window_packed_cuda(c2, m8, ln, 31, 9))
+    assert bool((svals[:cnt] < 0).any())  # bit 63 set
+    got = torch.zeros(923521, dtype=torch.int32, device=dev)
+    want = torch.zeros_like(got)
+    bin_scatter_values_cuda(got, svals)
+    bin_scatter_values_torch(want, svals)
+    assert int(want.sum()) == cnt
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_sketch_card_matches_cpu(tmp_path, monkeypatch):
     from hulk_tpu_torch import cli
     from hulk_tpu_torch.synth import generate
@@ -102,5 +168,26 @@ def test_sketch_card_matches_cpu(tmp_path, monkeypatch):
     fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=3)
     for dev in ("cuda", "cpu"):
         assert cli.main(["sketch", "-f", fq, "-k", "11", "-w", "5",
+                         "-o", str(tmp_path / dev), "--device", dev]) == 0
+    assert (tmp_path / "cuda.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [["--kmv", "--khf", "--hmh", "-i", "7000"],
+                                   ["-k", "31", "-s", "8", "--kmv"], ["--fasta"]])
+def test_sketch_options_card_match_cpu(extra, tmp_path, monkeypatch):
+    """Secondary sketches, the two-sort step (k=31) and FASTA with contigs
+    past 65,536 bases (the long-read blocks): card and CPU agree."""
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.synth import generate, generate_fasta
+
+    _card()
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    if "--fasta" in extra:
+        src = generate_fasta(str(tmp_path / "c.fa"), 12, lo=1000, hi=200_000, seed=4)
+    else:
+        src = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=3)
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["sketch", "-f", src, "-k", "11", "-w", "5", *extra,
                          "-o", str(tmp_path / dev), "--device", dev]) == 0
     assert (tmp_path / "cuda.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()

@@ -9,9 +9,12 @@ These tests check, here, the identities their designs rest on:
   fields of the packed rows (codes at bits 2p, N flags spread to bits 2p):
   rc = (~G & mask) | N and fwd = revpairs(G | N >> 4) >> (64 - 2k), and
   takes window minima as min(suffix[t], prefix[t + w - 1]) over blocks of w
-  (van Herk / Gil-Werman);
+  (van Herk / Gil-Werman); its cont form (the long-read blocks) sets the
+  span to k and reports from position w + k - 1;
 * csrc/jump_hash.cu replaces the divide by a reciprocal scaled by 2^31,
-  exits when the product p >= n and carries trunc(p) + 1 as a double.
+  exits when the product p >= n and carries trunc(p) + 1 as a double; its
+  values entry bins every live value, equal neighbours included, on all 64
+  bits.
 
 Tolerance: bit-equality (integer arithmetic and IEEE f64 operations rounded
 once each to nearest, the same in NumPy as on the card).
@@ -22,6 +25,10 @@ import torch
 
 from hulk_tpu_torch.hashes.jumphash import jump_hash_np
 from hulk_tpu_torch.ops import minimizer as tm
+
+from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch
+from hulk_tpu_torch.synth import kernel_batch as tm_kernel_batch
+from hulk_tpu_torch.synth import sorted_values
 
 from test_torch_jump import adversarial_keys
 from test_torch_minimizer import packed_batch
@@ -71,7 +78,7 @@ def field(words: np.ndarray, o: np.ndarray) -> np.ndarray:
     return np.where(sh == 0, lo, lo | hi)
 
 
-def model_minimizer_packed(c2, m8, lengths, k, w):
+def model_minimizer_packed(c2, m8, lengths, k, w, cont=False):
     r, l = c2.shape[0], 4 * c2.shape[1]
     cw, nw = staged_rows(c2, m8)
     mask, nlim = U64((1 << (2 * k)) - 1), U64((1 << (2 * k + 1)) - 1)
@@ -84,7 +91,8 @@ def model_minimizer_packed(c2, m8, lengths, k, w):
     fwd = reverse_pairs(g | (n >> U64(4))) >> U64(64 - 2 * k)
     valid = (q >= k - 1) & (q < lengths[:, None]) & (fwd != rc)
     canon = np.minimum(fwd, rc)
-    span = np.minimum(q - (w - 2), k).astype(np.int64).view(np.uint64)
+    span = np.full(q.shape, k) if cont else np.minimum(q - (w - 2), k)
+    span = span.astype(np.int64).view(np.uint64)
     x = np.where(valid, (hash64(canon, int(mask)) << U64(8)) | span, MAX)
     # van Herk / Gil-Werman over entries e = 0.. (e = position + w - 1)
     e = np.concatenate([np.full((r, w - 1), MAX), x], axis=1)
@@ -93,7 +101,7 @@ def model_minimizer_packed(c2, m8, lengths, k, w):
     pre = np.minimum.accumulate(blk, axis=2).reshape(r, -1)
     suf = np.minimum.accumulate(blk[..., ::-1], axis=2)[..., ::-1].reshape(r, -1)
     wmin = np.minimum(suf[:, :l], pre[:, w - 1:w - 1 + l])
-    return wmin, valid & (q >= w - 1)
+    return wmin, valid & (q >= (w + k - 1 if cont else w - 1))
 
 
 @pytest.mark.parametrize("k", [1, 3, 21, 31])
@@ -104,6 +112,21 @@ def test_packed_kmer_and_window_identities(k, w):
     wm, rep = model_minimizer_packed(c2, m8, ln, k, w)
     wm0, rep0 = tm.minimizer_window_packed_torch(
         torch.from_numpy(c2), torch.from_numpy(m8), torch.from_numpy(ln), k, w)
+    assert rep0.numpy().any()
+    assert np.array_equal(rep, rep0.numpy())
+    assert np.array_equal(wm, wm0.numpy().view(np.uint64))
+
+
+@pytest.mark.parametrize("k,w", [(1, 1), (3, 20), (21, 9), (31, 2), (31, 64)])
+def test_cont_form_identities(k, w):
+    """The cont form on u8 codes (minimizer_window_torch(cont=True)) against
+    the model of the same reads staged from the packed layout, as the
+    kernel's u8 staging builds the same bit rows."""
+    rng = np.random.default_rng(11 * k + w)
+    codes, ln, c2, m8 = tm_kernel_batch(rng, 16, 320, 1, 320)
+    wm, rep = model_minimizer_packed(c2, m8, ln, k, w, cont=True)
+    wm0, rep0 = tm.minimizer_window_torch(torch.from_numpy(codes), torch.from_numpy(ln),
+                                          k, w, cont=True)
     assert rep0.numpy().any()
     assert np.array_equal(rep, rep0.numpy())
     assert np.array_equal(wm, wm0.numpy().view(np.uint64))
@@ -139,3 +162,19 @@ def test_jump_loop_identities(n):
     keys = np.concatenate([adversarial_keys(),
                            rng.integers(0, 2**64 - 1, size=5000, dtype=np.uint64, endpoint=True)])
     assert np.array_equal(model_jump(keys, n), jump_hash_np(keys, n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 923521, 5_000_000])
+def test_values_binning_identities(n):
+    """The values entry: skip only the sentinel, no dedup (equal neighbours
+    come from different reads), the loop on all 64 bits, one atomic add per
+    live value."""
+    svals = np.concatenate([sorted_values(np.random.default_rng(n), 3000),
+                            np.full(5, 0xFFFFFFFFFFFFFFFE, dtype=np.uint64)])
+    svals.sort()
+    live = svals != MAX
+    model = np.bincount(model_jump(svals[live], n), minlength=n)
+    hist = torch.zeros(n, dtype=torch.int32)
+    bin_scatter_values_torch(hist, torch.from_numpy(svals.view(np.int64)))
+    assert hist.sum() == live.sum() > 3000
+    assert np.array_equal(hist.numpy(), model)

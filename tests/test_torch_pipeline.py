@@ -2,7 +2,10 @@
 (--device cpu, the plain versions of both kernels) run in-process on the
 same seed-generated FASTQ and must write byte-identical out.json, for the
 defaults, -s 42, -i (interval flushes) and -x 0.9 (concept drift). k=11,
-w=5 keeps the CWS tables small (14,641 bins).
+w=5 keeps the CWS tables small (14,641 bins); one case runs the default
+k=21, w=9 with a small -s. Reads of mixed lengths (40-3,000 bp) cover the
+length buckets 128 to 4096, the group flush on a change of bucket, the
+split by rows past L = 2048 and -i cutting across buckets.
 
 Tolerance: byte-identical JSON (integer histograms, then the same exact host
 flush).
@@ -13,7 +16,7 @@ import pytest
 import hulk_tpu.cli as jax_cli
 import hulk_tpu_torch.cli as torch_cli
 from hulk_tpu_torch.stream.pipeline import PipelineError, SketchConfig, run_sketch_pipeline
-from hulk_tpu_torch.synth import generate
+from hulk_tpu_torch.synth import generate, generate_mixed
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +26,8 @@ def reads(tmp_path_factory):
 
 
 @pytest.mark.parametrize("extra", [[], ["-s", "42"], ["-i", "1000"], ["-x", "0.9"],
-                                   ["-i", "700", "-x", "0.9", "-b", "lbl"]])
+                                   ["-i", "700", "-x", "0.9", "-b", "lbl"],
+                                   ["-k", "21", "-w", "9", "-s", "8"]])
 def test_out_json_byte_identical(reads, tmp_path, monkeypatch, extra):
     monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
     args = ["sketch", "-f", reads, "-k", "11", "-w", "5", *extra]
@@ -31,6 +35,21 @@ def test_out_json_byte_identical(reads, tmp_path, monkeypatch, extra):
     assert torch_cli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
     want = (tmp_path / "jax.json").read_bytes()
     assert (tmp_path / "port.json").read_bytes() == want
+
+
+@pytest.fixture(scope="module")
+def mixed_reads(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mixed")
+    return generate_mixed(str(d / "mixed.fq.gz"), 2500, lo=40, hi=3000, seed=5)
+
+
+@pytest.mark.parametrize("extra", [["-i", "333"], ["-i", "700", "-x", "0.9"]])
+def test_mixed_lengths_byte_identical(mixed_reads, tmp_path, monkeypatch, extra):
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    args = ["sketch", "-f", mixed_reads, "-k", "11", "-w", "5", *extra]
+    assert jax_cli.main(args + ["-o", str(tmp_path / "jax")]) == 0
+    assert torch_cli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
 
 
 def test_reads_iterator_matches_native_path(reads, tmp_path, monkeypatch):
@@ -65,14 +84,14 @@ def test_long_batches_split_by_rows(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,what", [
-    ("fasta", True, "FASTA"), ("kmv", True, "KMV"), ("hmh", True, "HMH"),
     ("checkpoint_path", "x.ckpt", "--checkpoint"), ("device_flush", True, "--deviceFlush"),
-    ("kmer_size", 25, "two-sort"),
+    ("on_interval", print, "--stream"),
 ])
 def test_unported_options_raise(field, value, what):
-    cfg = SketchConfig(device="cpu", **{field: value})
+    on_interval = value if field == "on_interval" else None
+    cfg = SketchConfig(device="cpu", **({} if on_interval else {field: value}))
     with pytest.raises(PipelineError, match=what):
-        run_sketch_pipeline(iter([b"ACGT" * 40]), cfg)
+        run_sketch_pipeline(iter([b"ACGT" * 40]), cfg, on_interval=on_interval)
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
