@@ -44,8 +44,31 @@ Phases, each printing its seconds:
      byte-identical on card and CPU, profiled once, and the host's share of
      their long-read path timed (the blockwise scan against the host
      spectrum's binning of its values).
-Then one JSON line of kernels (every entry, with its launches summed over
-the driven runs of phases 3, 5, 6 and 7), the card's name and power limit,
+  8. intervals (BASELINE config 4): ten gzip FASTQ files of 1M reads (phase
+     3's and nine generated in parallel processes, seeds 1-9) as one -f
+     list: (8a) `-i 1000000 -x 0.9 --stream --checkpoint`, reads/s, ten
+     interval documents and the final one on stdout, the streaming
+     thread's waits on the flush worker, and a profiled run over files 0-1;
+     (8b) the host flush against --deviceFlush (out.json byte-identical, no
+     margin fallback), then one interval's flush alone: the candidate
+     stage's device time beside its bound, and the exact host flush without
+     and with drift; (8c) a run over files 0-4 with --checkpoint, resumed
+     over all ten: it seeks to file 4 and gives 8a's out.json; (8d) the
+     first 50,000 reads with -i 10000 --stream --streamAll and the three
+     sketches, and with --deviceFlush against the host flush on the CPU:
+     stdout and out.json byte-identical card vs CPU. Every run's launches
+     are asserted: the packed minimizer and the fused binning pass once per
+     batch.
+  9. smash: 1,024 synthetic sketch JSONs (16 families), `smash -m
+     weightedjaccard` and `-m jaccard` on the card and with --device cpu:
+     CSV byte-identical, the first 40 sketches' cells equal to the host
+     path's; wall seconds, the matrix's device time and the cells
+     rechecked on the host; the matrix alone at 4,096 sketches beside its
+     bound; `print` and `distance` on both devices.
+Then one JSON line of the device stages that have no TPU kernel (the
+flush's candidate stage, the smash matrix) with device ms and bound, one
+JSON line of kernels (every entry, with its launches summed over the driven
+runs of phases 3, 5, 6, 7 and 8), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure ends the run with a
 non-zero exit code and no result line. Nothing is written into the
 repository except the gitignored kernel build directory; the inputs and
@@ -55,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import io
 import itertools
 import json
 import os
@@ -613,12 +637,16 @@ def read_launches() -> dict:
 
 def drive(tag: str, src: str, tmp: str, extra=()) -> tuple[float, int, dict]:
     """One launch-counted run of the main path on the card: every count set
-    to 0 just before, read just after. Returns (seconds, minimizers,
+    to 0 just before, read just after; what the run writes to stdout (the
+    --stream documents) goes to <tag>.stdout. Returns (seconds, minimizers,
     counts)."""
     reset_launches()
-    seconds, n_min = sketch_cli(src, os.path.join(tmp, tag), "cuda",
-                                os.path.join(tmp, f"{tag}.log"), extra)
+    with captured_stdout() as out:
+        seconds, n_min = sketch_cli(src, os.path.join(tmp, tag), "cuda",
+                                    os.path.join(tmp, f"{tag}.log"), extra)
     counts = read_launches()
+    with open(os.path.join(tmp, f"{tag}.stdout"), "wb") as fh:
+        fh.write(out.getvalue())
     print(f"{tag}: {seconds:.3f} s, {n_min} minimizers, launches {counts}", flush=True)
     return seconds, n_min, counts
 
@@ -647,8 +675,9 @@ def profiled(tag: str, src: str, tmp: str, extra=()):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = sketch_cli(src, os.path.join(tmp, tag), "cuda",
-                               os.path.join(tmp, f"{tag}.log"), extra)
+        with captured_stdout():  # --stream documents, not needed here
+            t_prof, _ = sketch_cli(src, os.path.join(tmp, tag), "cuda",
+                                   os.path.join(tmp, f"{tag}.log"), extra)
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
@@ -739,6 +768,372 @@ def expected_long_launches(lengths, k: int, w: int) -> tuple[int, int]:
     long_ = [int(x) for x in lengths if x >= DEFAULT_LENGTH_BUCKETS[-1]]
     groups = sum(-(-len(range(S - H, L - H, S - H)) // DEFAULT_GROUP) for L in long_)
     return len(long_), groups
+
+
+@contextlib.contextmanager
+def captured_stdout():
+    """Collect what is written to sys.stdout (--stream's JSON) as bytes."""
+    buf = io.BytesIO()
+    out, sys.stdout = sys.stdout, io.TextIOWrapper(buf)
+    try:
+        yield buf
+    finally:
+        sys.stdout.flush()
+        sys.stdout.detach()
+        sys.stdout = out
+
+
+def json_docs(data: bytes) -> list:
+    """The JSON documents of a --stream stdout, one after another."""
+    dec, text, pos, docs = json.JSONDecoder(), data.decode(), 0, []
+    while pos < len(text):
+        doc, pos = dec.raw_decode(text, pos)
+        docs.append(doc)
+        pos += 1
+    return docs
+
+
+def profiled_device_ms(fn, reps: int = 5, tag: str = "") -> float:
+    """Device milliseconds a call of fn (plain PyTorch, many launches), by
+    torch.profiler: the card's kernel and copy time over reps calls, after
+    one warm-up, divided by reps; with a tag, the operators that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    if tag:
+        print(f"{tag}, {reps} calls profiled:", flush=True)
+        print(events.table(sort_by="self_device_time_total", row_limit=8), flush=True)
+    return device_seconds(events) * 1e3 / reps
+
+
+def device_seconds(events) -> float:
+    import torch
+
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def reset_flush_stats() -> None:
+    from hulk_tpu_torch.ops import distance
+    from hulk_tpu_torch.stream import pipeline
+
+    pipeline.flush_stats.update(device_flushes=0, margin_fallbacks=0, flush_waits=[])
+    distance.recheck_stats["cells"] = 0
+
+
+def check_launches(tag: str, counts: dict, reads: int) -> int:
+    """The main path's two entries once per batch, and nothing else: the
+    packed minimizer and the fused binning pass the same number of times,
+    at least one batch per 16,384 reads. Returns the batch count."""
+    n = counts["minimizer_window_packed"]
+    if (n < -(-reads // 16384) or counts["bin_scatter_keys"] != n
+            or sum(counts.values()) != 2 * n):
+        raise SystemExit(f"FAIL {tag}: launches {counts} for {reads} reads")
+    return n
+
+
+def generate_files(tmp: str, first: str) -> list[str]:
+    """Phase 8's ten FASTQ files of 1M reads: phase 3's file, then seeds 1-9
+    generated in parallel processes (spawned, so that no child inherits the
+    CUDA context), all joined before this returns."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from hulk_tpu_torch.synth import generate
+
+    paths = [os.path.join(tmp, f"part{i}.fq.gz") for i in range(1, 10)]
+    with ProcessPoolExecutor(max_workers=min(9, os.cpu_count() or 1),
+                             mp_context=mp.get_context("spawn")) as ex:
+        list(ex.map(generate, paths, [READS] * 9, [150] * 9, range(1, 10)))
+    return [first, *paths]
+
+
+def flush_stage_times(fq: str) -> dict:
+    """One interval's flush, alone, on the histogram of fq's 1M reads: the
+    device candidate stage's device time (profiler) beside its bound, the
+    device flush's wall time (stage, copy back and host recheck), and the
+    exact host flush's wall time (native.flush_exact_native) without and
+    with drift, each on a fresh sketch, median of 3."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.hashes.cws import get_cws_tables
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+    from hulk_tpu_torch.stream.fastq import batch_reads_native
+    from hulk_tpu_torch.stream.pipeline import SketchConfig, _DeviceFlusher, _DeviceStream
+
+    cfg = SketchConfig(kmer_size=21, window_size=9, sketch_size=42, device="cuda")
+    dev = _DeviceStream(cfg, NBINS)
+    for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), raw=True):
+        dev.feed(b)
+    hist = dev.take_hist()
+    tables = get_cws_tables(42, NBINS)
+    flusher = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS, dev.device)
+    stage_ms = profiled_device_ms(lambda: mesh.device_flush_candidates(
+        hist, flusher.row_bins, flusher.cms, *flusher.tables), tag="device flush candidate stage")
+    depth, width = flusher.cms.shape
+    used = int((hist != 0).sum())
+    # bytes: histogram, row table, tables read once, CMS read and written;
+    # operations: about 6 FP64 a (slot, bin) (subtract, exp, 2 multiplies,
+    # divide, compare) and 4 a (row, bin) of the CMS scan
+    nbytes = 4 * NBINS + 8 * depth * NBINS + 3 * 8 * 42 * NBINS + 2 * 8 * depth * width
+    stage_bound = bound(nbytes, 6 * 42 * NBINS + 4 * depth * NBINS, FP64_OPS_PER_S)
+
+    def wall(fn) -> float:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    def device_flush():
+        f = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS, dev.device)
+        t0 = time.perf_counter()
+        f.flush_from(hist)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    h = hist.cpu().numpy().astype(np.float64)
+    ids = np.nonzero(h)[0].astype(np.int64)
+    host = {}
+    for decay in (1.0, 0.9):
+        def one(decay=decay):
+            HistoSketch(21, 42, NBINS, decay, tables=tables).add_elements(ids, h[ids])
+        host[decay] = wall(one)
+    dev_wall = sorted(device_flush() for _ in range(3))[1]
+    print(f"one interval's flush (1M reads, {used} bins used of {NBINS}, s=42): device "
+          f"candidate stage {stage_ms:.4f} ms device time (bound {stage_bound[0]:.4f} ms by "
+          f"{stage_bound[1]}), device flush {1e3 * dev_wall:.3f} ms wall; host flush alone "
+          f"(native) {1e3 * host[1.0]:.3f} ms without drift, {1e3 * host[0.9]:.3f} ms with "
+          f"-x 0.9", flush=True)
+    return dict(name="device_flush_candidates", source="hulk_tpu_torch/parallel/mesh.py",
+                counterpart="hulk_tpu/parallel/mesh.py:330", ms=stage_ms,
+                bound_ms=stage_bound[0], bound_by=stage_bound[1],
+                shape=f"nbins={NBINS} s=42 depth={depth} width={width}")
+
+
+def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> list:
+    """Phase 8 (cell d): BASELINE config 4's stream, 10M reads in ten files,
+    -i 1000000 -x 0.9, and the interval machinery around it."""
+    from hulk_tpu_torch.stream import pipeline
+    from hulk_tpu_torch.stream.fastq import batch_reads_native
+
+    t0 = time.perf_counter()
+    files = generate_files(tmp, fq)
+    n_reads = READS * len(files)
+    print(f"generated {len(files) - 1} more files of {READS} reads in parallel: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    src = ",".join(files)
+    every = ("-i", str(READS))
+
+    # (8a) the stream with --stream and a checkpoint at every interval
+    reset_flush_stats()
+    seconds, _, counts = drive("8a", src, tmp, (*every, "-x", "0.9", "--stream",
+                                               "--checkpoint", os.path.join(tmp, "ck.npz")))
+    path_launches["8a"] = counts
+    check_launches("8a", counts, n_reads)
+    with open(os.path.join(tmp, "8a.stdout"), "rb") as fh:
+        stdout = fh.read()
+    docs = json_docs(stdout)
+    if len(docs) != len(files) + 1:
+        raise SystemExit(f"FAIL 8a: {len(docs)} JSON documents on stdout, expected "
+                         f"{len(files)} intervals and the final sketch")
+    with open(os.path.join(tmp, "8a.json"), "rb") as fh:
+        want = fh.read()
+    if not stdout.endswith(want + b"\n"):
+        raise SystemExit("FAIL 8a: the final --stream document is not out.json")
+    check_sketch(os.path.join(tmp, "8a.json"), 42)
+    waits = pipeline.flush_stats["flush_waits"]
+    t_8a = seconds
+    print(f"8a: {n_reads} reads, -i {READS} -x 0.9 --stream --checkpoint: {seconds:.3f} s = "
+          f"{n_reads / seconds:.0f} reads/s; {len(docs) - 1} interval documents + the final; "
+          f"waits on the flush worker {sum(waits):.3f} s in all, per wait "
+          f"{[round(x, 4) for x in waits]}", flush=True)
+    profiled("8a_files_0_1", ",".join(files[:2]), tmp,
+             (*every, "-x", "0.9", "--stream", "--checkpoint", os.path.join(tmp, "ck_prof.npz")))
+
+    # (8b) the host flush against --deviceFlush, no drift
+    reset_flush_stats()
+    t_host, _, counts = drive("8b_host", src, tmp, every)
+    path_launches["8b_host"] = counts
+    check_launches("8b host", counts, n_reads)
+    t_dev, _, counts = drive("8b_device", src, tmp, (*every, "--deviceFlush"))
+    path_launches["8b_device"] = counts
+    check_launches("8b device", counts, n_reads)
+    stats = dict(pipeline.flush_stats)
+    for name in ("8b_host", "8b_device"):
+        with open(os.path.join(tmp, f"{name}.json"), "rb") as fh:
+            stats[name] = fh.read()
+    if stats["8b_host"] != stats["8b_device"]:
+        raise SystemExit("FAIL 8b: --deviceFlush out.json differs from the host flush's")
+    if stats["margin_fallbacks"] or stats["device_flushes"] != len(files):
+        raise SystemExit(f"FAIL 8b: {stats['device_flushes']} device flushes, "
+                         f"{stats['margin_fallbacks']} margin fallbacks")
+    print(f"8b: host flush {t_host:.3f} s = {n_reads / t_host:.0f} reads/s; --deviceFlush "
+          f"{t_dev:.3f} s = {n_reads / t_dev:.0f} reads/s; out.json byte-identical; "
+          f"{stats['device_flushes']} device flushes, 0 margin fallbacks", flush=True)
+    stage = flush_stage_times(fq)
+    stage["launches"] = stats["device_flushes"]
+
+    # (8c) a run killed after file 4, resumed over all ten by seeking
+    ck = os.path.join(tmp, "ck_cut.npz")
+    flags = (*every, "-x", "0.9")
+    _, _, counts_cut = drive("8c_cut", ",".join(files[:5]), tmp, (*flags, "--checkpoint", ck))
+    t_res, _, counts = drive("8c_resume", src, tmp, (*flags, "--resume", ck))
+    t0 = time.perf_counter()  # the seek alone: skipping file 4's records
+    next(iter(batch_reads_native(files, batch_size=16384, start_file=4, skip_reads=READS,
+                                 raw=True)))
+    t_seek = time.perf_counter() - t0
+    path_launches["8c_cut"], path_launches["8c_resume"] = counts_cut, counts
+    with open(os.path.join(tmp, "8c_resume.json"), "rb") as fh:
+        if fh.read() != want:
+            raise SystemExit("FAIL 8c: the resumed run's out.json differs from 8a's")
+    with open(os.path.join(tmp, "8c_resume.log")) as fh:
+        if f"seek resume: file 4, skipping {READS} records" not in fh.read():
+            raise SystemExit("FAIL 8c: the resumed run did not seek to file 4")
+    if {k: counts_cut[k] + counts[k] for k in counts} != path_launches["8a"]:
+        raise SystemExit(f"FAIL 8c: launches {counts_cut} + {counts}, 8a {path_launches['8a']}")
+    print(f"8c: resumed from file 4 (seek, {READS} records skipped): {t_res:.3f} s for the "
+          f"last {n_reads // 2} reads, against 8a's {t_8a:.3f} s for all; out.json "
+          f"byte-identical to 8a's; the seek to the first batch after it alone "
+          f"{t_seek:.3f} s", flush=True)
+
+    # (8d) card against CPU on the first 50,000 reads
+    for label, card, cpu in (
+            ("--stream --streamAll --kmv --khf --hmh",
+             ("-i", "10000", "-x", "0.9", "--stream", "--streamAll", "--kmv", "--khf", "--hmh"),
+             None),
+            ("--deviceFlush on the card, host flush on the CPU",
+             ("-i", "10000", "--deviceFlush"), ("-i", "10000"))):
+        got = {}
+        for device, extra in (("cuda", card), ("cpu", cpu or card)):
+            out_path = os.path.join(tmp, f"8d_{device}")
+            with captured_stdout() as out:
+                sketch_cli(small, out_path, device, out_path + ".log", extra)
+            with open(out_path + ".json", "rb") as fh:
+                got[device] = (out.getvalue(), fh.read())
+        if got["cuda"] != got["cpu"]:
+            raise SystemExit(f"FAIL 8d {label}: stdout or out.json differs card vs CPU")
+        print(f"8d {label}, first {SUBSET_READS} reads: stdout ({len(got['cuda'][0])} bytes) "
+              f"and out.json byte-identical card vs CPU", flush=True)
+    return [stage]
+
+
+def matrix_bound(n: int, s: int, weighted: bool) -> tuple[float, str]:
+    """The smash matrix's least time: the f64 mins (and |weights| and row
+    sums) read once and the [n, n] result written once; one FP64 compare a
+    (row, column, slot), plus one add where weighted."""
+    nbytes = 8 * n * s * (2 if weighted else 1) + 8 * n + 8 * n * n
+    return bound(nbytes, n * n * s * (2 if weighted else 1), FP64_OPS_PER_S)
+
+
+def smash_phase(tmp: str) -> list:
+    """Phase 9 (cell e): all-against-all smash of 1,024 synthetic sketches,
+    card against CPU; the matrix alone at 4,096."""
+    import csv
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.ops import distance
+    from hulk_tpu_torch.synth import sketch_jsons
+
+    n, s = 1024, 42
+    pile = os.path.join(tmp, "sketches")
+    os.makedirs(pile)
+    t0 = time.perf_counter()
+    names = sketch_jsons(pile, n, k=21, s=s, families=16, seed=SEED)
+    print(f"generated {n} sketch JSONs (histosketch, KMV, KHF; 16 families): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    stages = []
+    for metric in ("weightedjaccard", "jaccard"):
+        csvs = {}
+        for device in ("cuda", "cpu"):
+            reset_flush_stats()
+            out = os.path.join(tmp, f"smash_{metric}_{device}")
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+            t0 = time.perf_counter()
+            with profile(activities=acts) as prof:
+                rc = cli.main(["smash", "-d", pile, "-m", metric, "-o", out, "--device", device,
+                               "--log", out + ".log"])
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                raise SystemExit(f"FAIL smash -m {metric} on {device}: exit code {rc}")
+            with open(out + ".hulk-matrix.csv", "rb") as fh:
+                csvs[device] = fh.read()
+            if device == "cuda":
+                dev_ms = device_seconds(prof.key_averages()) * 1e3
+                rechecked = distance.recheck_stats["cells"]
+                t_card = seconds
+        if csvs["cuda"] != csvs["cpu"]:
+            raise SystemExit(f"FAIL smash -m {metric}: the CSV differs card vs CPU")
+        rows = list(csv.reader(io.StringIO(csvs["cuda"].decode())))
+        cells = np.array(rows[1:], dtype=np.float64)
+        if cells.shape != (n, n) or not (np.diag(cells) == 100).all():
+            raise SystemExit(f"FAIL smash -m {metric}: matrix {cells.shape}, diagonal not 100")
+        # the first 40 sketches through the host path (get_distance), cell
+        # for cell against the device's block of them
+        sub = os.path.join(tmp, f"sub_{metric}")
+        os.makedirs(sub)
+        for f in names[:40]:
+            shutil.copy(f, sub)
+        cli.main(["smash", "-d", sub, "-m", metric, "-o", sub + "_host", "--log", sub + ".log"])
+        with open(sub + "_host.hulk-matrix.csv") as fh:
+            host = list(csv.reader(fh))[1:]
+        if [r[:40] for r in rows[1:41]] != host:
+            raise SystemExit(f"FAIL smash -m {metric}: the device's cells differ from the "
+                             f"host path's on the first 40 sketches")
+        spread = np.percentile(cells[~np.eye(n, dtype=bool)], [5, 50, 95])
+        print(f"smash -m {metric}, {n} sketches: CSV byte-identical card vs CPU, first 40 "
+              f"equal to the host path; card {t_card:.3f} s wall, matrix device time "
+              f"{dev_ms:.3f} ms, {rechecked} cells rechecked on the host; similarity "
+              f"percentiles 5/50/95 {spread.tolist()}", flush=True)
+
+    rng = np.random.default_rng(SEED)
+    big = 4096
+    mins = rng.integers(0, NBINS, (big, s)).astype(np.uint64)
+    mins[rng.random((big, s)) < 0.5] = 7  # half the slots match somewhere
+    weights = rng.exponential(1.0, (big, s))
+    for name, weighted, fn in (
+            ("smash_matrix_weightedjaccard", True,
+             lambda: distance.pairwise_weighted_jaccard_dist(mins, weights, device="cuda")),
+            ("smash_matrix_jaccard", False,
+             lambda: distance.pairwise_jaccard_sim(mins, device="cuda"))):
+        ms = profiled_device_ms(fn, reps=2)
+        b = matrix_bound(big, s, weighted)
+        print(f"{name} alone, {big} sketches x s={s}: device {ms:.3f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]}), {100 * b[0] / ms:.2f}% of bound", flush=True)
+        stages.append(dict(name=name, source="hulk_tpu_torch/ops/distance.py",
+                           counterpart="hulk_tpu/ops/distance.py:39", ms=ms, bound_ms=b[0],
+                           bound_by=b[1], launches=-(-big // 512) * -(-big // 4096),
+                           shape=f"N={big} s={s}"))
+
+    a, b2 = names[0], names[1]
+    for sub_args in (["print", "-f", a, "-f", b2], ["distance", "-f", a, "-f", b2, "-m",
+                                                    "weightedjaccard"]):
+        outs = []
+        for device in ("cuda", "cpu"):
+            with captured_stdout() as out:
+                if cli.main([*sub_args, "--device", device]) != 0:
+                    raise SystemExit(f"FAIL {sub_args[0]}: non-zero exit")
+            outs.append(out.getvalue())
+        if outs[0] != outs[1] or not outs[0]:
+            raise SystemExit(f"FAIL {sub_args[0]}: output differs between devices")
+        print(f"{sub_args[0]} on two sketches: {outs[0][:60]!r}... same with --device cpu",
+              flush=True)
+    return stages
 
 
 def main() -> int:
@@ -871,6 +1266,12 @@ def main() -> int:
                         f"({int(lengths[:SUBSET_CONTIGS].sum())} bases)", sub, tmp, flags)
             profiled("fasta_subset", sub, tmp, flags)
             long_read_split(sub)
+
+        with phase("8 intervals (d)"):
+            stages = interval_phase(fq, small, tmp, path_launches)
+
+        with phase("9 smash (e)"):
+            stages += smash_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -879,6 +1280,7 @@ def main() -> int:
         by_phase = {p: c[r["counter"]] for p, c in path_launches.items()}
         kernels.append(dict(r, launches=sum(by_phase.values()), launches_by_phase=by_phase))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"device_stages": stages}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,21 @@
-"""The port's command line: `sketch` and `version`.
+"""The port's command line: `sketch`, `smash`, `print`, `distance` and
+`version`.
 
-Counterpart of hulk_tpu/cli.py (flags and defaults at :45-75, run_sketch at
-:120, main at :718). Flag names, shorthands and defaults are hulk sketch's
-(themselves the Go reference's), plus --device, so that
+Counterpart of hulk_tpu/cli.py (flags and defaults at :45-104, run_sketch at
+:120, run_smash at :287, print and distance at :570-600, main at :718).
+Flag names, shorthands and defaults are hulk's (themselves the Go
+reference's), plus --device, so that
 
     python -m hulk_tpu_torch sketch -f reads.fq.gz -k 21 -w 9 -s 42 -o out
+    python -m hulk_tpu_torch smash -d sketches/ -m weightedjaccard -o matrix
 
-writes the same out.json byte for byte as `hulk sketch` does. Options that
-this slice of the port does not take end the run with an error naming them.
+write the same bytes as `hulk sketch` and `hulk smash` do. `index` and the
+runs of several processes are not in the port yet.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -54,8 +58,8 @@ def _add_global_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--log", dest="log_file", type=str, default="", help="filename for log file")
     p.add_argument("-p", "--processors", type=int, default=1, help="number of processors to use")
-    p.add_argument("--profiling", action="store_true", help="write a profiler trace (not ported yet)")
-    p.add_argument("--device", type=str, default="cuda", help="PyTorch device to sketch on (cuda, cuda:N or cpu)")
+    p.add_argument("--profiling", action="store_true", help="write a torch.profiler trace under ./hulk-profile")
+    p.add_argument("--device", type=str, default="cuda", help="PyTorch device to run on (cuda, cuda:N or cpu)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,18 +74,55 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("-i", "--interval", type=int, default=0, help="size of k-mer sampling interval (0 = no interval)")
     ps.add_argument("-s", "--sketchSize", type=int, default=50, help="size of sketch")
     ps.add_argument("-x", "--decayRatio", type=float, default=1.0, help="decay ratio used for concept drift (1.0 = disabled)")
-    ps.add_argument("--stream", action="store_true", help="print sketches to STDOUT after every interval (not ported yet)")
+    ps.add_argument("--stream", action="store_true", help="print sketches to STDOUT after every interval (log redirected to disk; snapshots carry the histosketch only unless --streamAll)")
+    ps.add_argument("--streamAll", dest="stream_all", action="store_true", help="with --stream: interval snapshots also carry the KMV/KHF/HMH signatures (costs one device-state sync per interval)")
     ps.add_argument("-b", "--bannerLabel", type=str, default="blank", help="adds a label to the sketch object, for use with BANNER")
     ps.add_argument("--khf", action="store_true", help="also generate a MinHash K-Hash Functions sketch")
     ps.add_argument("--kmv", action="store_true", help="also generate a MinHash K-Minimum Values sketch")
     ps.add_argument("--hmh", "--hyperminhash", dest="hmh", action="store_true", help="also generate a HyperMinHash sketch")
-    ps.add_argument("--deviceFlush", "--device-flush", dest="device_flush", action="store_true", help="run the histosketch flush on the device (not ported yet)")
-    ps.add_argument("--checkpoint", type=str, default="", help="write a resumable state snapshot after every interval flush (not ported yet)")
-    ps.add_argument("--resume", type=str, default="", help="resume a sketch run from a --checkpoint snapshot (not ported yet)")
+    ps.add_argument("--deviceFlush", "--device-flush", dest="device_flush", action="store_true", help="run the histosketch flush on the device (exact output, requires decayRatio=1.0)")
+    ps.add_argument("--checkpoint", type=str, default="", help="write a resumable state snapshot after every interval flush (requires -i)")
+    ps.add_argument("--resume", type=str, default="", help="resume a sketch run from a --checkpoint snapshot")
+
+    pm = sub.add_parser("smash", help="Smash a bunch of sketches and return a distance matrix")
+    _add_global_flags(pm)
+    pm.add_argument("-d", "--sketchDir", type=str, default="./", help="the directory containing the sketches to smash")
+    pm.add_argument("--recursive", action="store_true", help="recursively search the supplied sketch directory")
+    pm.add_argument("-a", "--algorithm", type=str, default="histosketch", help="which sketching algorithm to use [histosketch, kmv, khf]")
+    pm.add_argument("-m", "--metric", type=str, default="jaccard", help="which distance metric to use [jaccard, weightedjaccard]")
+    pm.add_argument("--bannerMatrix", action="store_true", help="write a matrix file for banner")
+
+    pp = sub.add_parser("print", help="print sketch values as CSV rows (v0.0.2 surface)")
+    _add_global_flags(pp)
+    pp.add_argument("-f", "--file", action="append", default=[], required=True, help="sketch JSON file(s) to print")
+    pp.add_argument("-a", "--algorithm", type=str, default="histosketch", help="which sketch to print [histosketch, kmv, khf]")
+
+    pd = sub.add_parser("distance", help="distance between two sketches (v0.0.2 surface)")
+    _add_global_flags(pd)
+    pd.add_argument("-f", "--file", action="append", default=[], required=True, help="exactly two sketch JSON files")
+    pd.add_argument("-a", "--algorithm", type=str, default="histosketch", help="which sketching algorithm to use [histosketch, kmv, khf]")
+    pd.add_argument("-m", "--metric", type=str, default="jaccard", help="which distance metric to use [jaccard, weightedjaccard]")
 
     pv = sub.add_parser("version", help="prints current version and exits")
     _add_global_flags(pv)
     return root
+
+
+@contextlib.contextmanager
+def _profiling(on: bool, device: str):
+    """--profiling: a torch.profiler trace of the run, written under
+    ./hulk-profile (hulk_tpu's path) as a Chrome trace; the card's
+    activity is traced too when the run is on one."""
+    if not on:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    acts = [ProfilerActivity.CPU]
+    if device.startswith("cuda"):
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler("./hulk-profile")):
+        yield
 
 
 def _split_fastq_args(vals: list[str]) -> list[str]:
@@ -100,16 +141,14 @@ def run_sketch(args) -> None:
         run_sketch_pipeline,
     )
 
+    if args.stream and not args.log_file:
+        args.log_file = args.outFile + ".log"
     _setup_log(args.log_file or None)
     start = time.time()
     log.info("this is hulk (version %s)", HULK_COMPAT_VERSION)
     log.info("please cite Rowe et al. 2019, doi: https://doi.org/10.1186/s40168-019-0653-2")
     log.info("starting the sketch subcommand")
     log.info("checking parameters...")
-    if args.stream:
-        _error_check("--stream is not ported to hulk_tpu_torch yet")
-    if args.profiling:
-        _error_check("--profiling is not ported to hulk_tpu_torch yet")
 
     fastq = _split_fastq_args(args.fastq)
 
@@ -139,7 +178,7 @@ def run_sketch(args) -> None:
     log.info("\tminimizer k-mer size: %d", args.kmerSize)
     log.info("\tminimizer window size: %d", args.windowSize)
     log.info("\tsketch size: %d", args.sketchSize)
-    log.info("\tstreaming: disabled")
+    log.info("\tstreaming: %s", "enabled" if args.stream else "disabled")
     if args.decayRatio == 1:
         log.info("\tconcept drift: disabled")
     else:
@@ -170,6 +209,7 @@ def run_sketch(args) -> None:
         device_flush=args.device_flush,
         checkpoint_path=args.checkpoint or None,
         resume_from=args.resume or None,
+        interval_secondary=args.stream_all,
     )
     log.info("initialising sketching pipeline...")
     log.info("finding minimizers...")
@@ -178,8 +218,21 @@ def run_sketch(args) -> None:
         reads = None
     else:
         reads = stream_reads(fastq, fasta=args.fasta, stdin=None if fastq else sys.stdin.buffer)
+
+    # --stream: the sketch to STDOUT after every interval flush (the Go
+    # reference's documented behaviour, cmd/sketch.go:56), one JSON a line,
+    # written by the flush worker, in order since one flush at most is in
+    # flight
+    on_interval = None
+    if args.stream and args.interval:
+        def on_interval(snap):
+            sys.stdout.buffer.write(snap.to_json_bytes())
+            sys.stdout.buffer.write(b"\n")
+            sys.stdout.buffer.flush()
+
     try:
-        result = run_sketch_pipeline(reads, cfg)
+        with _profiling(args.profiling, args.device):
+            result = run_sketch_pipeline(reads, cfg, on_interval=on_interval)
     except (PipelineError, ValueError) as e:
         _error_check(str(e))
         return
@@ -192,13 +245,193 @@ def run_sketch(args) -> None:
     log.info("cleaning up...")
     result.hulk_data.write_json(args.outFile + ".json")
     log.info("\twritten sketch to disk: %s", args.outFile + ".json")
+    if args.stream:
+        sys.stdout.buffer.write(result.hulk_data.to_json_bytes())
+        sys.stdout.buffer.write(b"\n")
+        sys.stdout.buffer.flush()
     log.info("finished in %.6fs", time.time() - start)
+
+
+# ---- smash ----------------------------------------------------------------
+
+def run_smash(args) -> None:
+    import csv
+
+    from hulk_tpu_torch.io.sketchio import (
+        AVAIL_ALGORITHMS,
+        SketchIOError,
+        collect_jsons,
+        load_hulk_data,
+    )
+    from hulk_tpu_torch.sketch.distances import AVAIL_METRICS
+
+    _setup_log(args.log_file or None)
+    log.info("this is hulk (version %s)", HULK_COMPAT_VERSION)
+    log.info("starting the smash subcommand")
+    if args.metric not in AVAIL_METRICS:
+        _error_check(
+            f"supplied distance metric is not available: {args.metric}\n"
+            f"please select one of the following: {AVAIL_METRICS}"
+        )
+    if args.algorithm not in AVAIL_ALGORITHMS:
+        _error_check(
+            f"supplied algorithm not available: {args.algorithm}\n"
+            f"please select one of the following: {AVAIL_ALGORITHMS}"
+        )
+    out_dir = os.path.dirname(args.outFile)
+    if out_dir and out_dir != ".":
+        os.makedirs(out_dir, mode=0o700, exist_ok=True)
+    if not os.path.isdir(args.sketchDir):
+        _error_check(f"directory does not exist: {args.sketchDir}")
+
+    sketch_dir = args.sketchDir
+    if not sketch_dir.endswith("/"):
+        sketch_dir += "/"
+    try:
+        json_files = collect_jsons(sketch_dir, args.recursive)
+        sketches = {jf: load_hulk_data(jf) for jf in json_files}
+    except SketchIOError as e:
+        _error_check(str(e))
+        return
+    if len(sketches) < 2:
+        _error_check(
+            f"{len(sketches)} sketches found in the supplied directory, HULK needs at least 2 to smash!"
+        )
+
+    log.info("checking parameters and collecting sketches...")
+    log.info("\talgorithm: %s", args.algorithm)
+    log.info("\tk-mer size: %d", args.kmerSize)
+    log.info("\tcreate matrix for banner: %s", str(args.bannerMatrix).lower())
+    log.info("\tnumber of sketch objects: %d", len(sketches))
+    log.info("HULK SMASH!")
+
+    ordering = sorted(sketches.keys())
+    matrix_path = args.outFile + ".hulk-matrix.csv"
+    import torch
+
+    if args.device.startswith("cuda") and len(ordering) > 64 and not torch.cuda.is_available():
+        _error_check(f"device {args.device!r} requested but no CUDA device is available "
+                     "(use --device cpu for the plain PyTorch versions)")
+    try:
+        with _profiling(args.profiling, args.device):
+            # more than 64 sketches: the blocked matrix on the device, with
+            # no fallback (a failure there ends the run); fewer keep the
+            # host path, whose summation order is the reference's
+            if len(ordering) > 64 and args.algorithm != "hyperminhash":
+                matrix = _smash_matrix_device(sketches, ordering, args.metric,
+                                              args.kmerSize, args.algorithm, args.device)
+            else:
+                matrix = [[sketches[f1].get_distance(sketches[f2], args.metric,
+                                                     args.kmerSize, args.algorithm)
+                           for f2 in ordering] for f1 in ordering]
+    except SketchIOError as e:
+        _error_check(str(e))
+        return
+    with open(matrix_path, "w", newline="") as fh:
+        wr = csv.writer(fh, lineterminator="\n")
+        wr.writerow(ordering)
+        for row in matrix:
+            wr.writerow([f"{100 - d * 100:.2f}" for d in row])
+    log.info("\twritten similarity matrix to disk: %s", matrix_path)
+
+    if args.bannerMatrix:
+        banner_path = args.outFile + ".banner-matrix.csv"
+        with open(banner_path, "w", newline="") as fh:
+            wr = csv.writer(fh, lineterminator="\n")
+            for f1 in ordering:
+                try:
+                    obj = sketches[f1].find_sketch(args.kmerSize, args.algorithm)
+                except SketchIOError as e:
+                    _error_check(str(e))
+                    return
+                row = [str(int(v)) for v in obj.get_sketch()]
+                row.append(sketches[f1].banner)
+                wr.writerow(row)
+        log.info("\twritten banner matrix to disk: %s", banner_path)
+    log.info("finished")
+
+
+def _smash_matrix_device(sketches, ordering, metric, ksize, algo, device):
+    """[N, N] distance matrix through the blocked device matrix
+    (ops/distance.py), equal to the host path's get_distance cell for cell.
+
+    Both metrics compare the mins after the host's f64 cast. jaccard's
+    match counts are exact integers, and 1 - count/s is the host's own
+    arithmetic. weightedjaccard's cells within wjd_recheck_margin of a
+    %.2f rounding boundary are recomputed by the host path, so the CSV is
+    the host path's whatever order the device summed in."""
+    import numpy as np
+
+    from hulk_tpu_torch.io.sketchio import SketchIOError, _weights_of
+    from hulk_tpu_torch.ops import distance
+
+    objs = [sketches[f].find_sketch(ksize, algo) for f in ordering]
+    sizes = [len(o.get_sketch()) for o in objs]
+    for n in sizes:
+        if n != sizes[0]:  # the host path's first failing cell, (0, j)
+            raise SketchIOError(f"sketch length mismatch: {sizes[0]} vs {n}")
+    mins = np.stack([np.asarray(o.get_sketch(), dtype=np.uint64) for o in objs])
+    if metric != "weightedjaccard":
+        return 1.0 - distance.pairwise_jaccard_sim(mins, device=device)
+    weights = [_weights_of(o) for o in objs]
+    if any(wt is None for wt in weights):
+        raise SketchIOError("weighted jaccard is only supported for histosketches")
+    d = distance.pairwise_weighted_jaccard_dist(mins, np.stack(weights), device=device)
+    cells = 100.0 - d * 100.0
+    frac = np.abs(cells * 100.0 - np.floor(cells * 100.0) - 0.5)
+    risky = np.argwhere(frac < distance.wjd_recheck_margin(mins.shape[1]) * 10000.0)
+    for i, j in risky:
+        d[i, j] = sketches[ordering[i]].get_distance(sketches[ordering[j]], metric, ksize, algo)
+    distance.recheck_stats["cells"] += len(risky)
+    if len(risky):
+        log.info("\trechecked %d boundary cells on the host", len(risky))
+    return d
+
+
+# ---- print / distance (v0.0.2 surface reconstructions) ---------------------
+# hulk_tpu's `print` row format is the banner matrix's (sketch ints, then the
+# file path as the label); `distance` prints one distance to six places.
+
+def run_print(args) -> None:
+    from hulk_tpu_torch.io.sketchio import SketchIOError, load_hulk_data
+
+    _setup_log(args.log_file or None)
+    for f in args.file:
+        try:
+            obj = load_hulk_data(f).find_sketch(args.kmerSize, args.algorithm)
+        except SketchIOError as e:
+            _error_check(str(e))
+            return
+        row = ",".join(str(int(v)) for v in obj.get_sketch())
+        sys.stdout.write(f"{row},{f}\n")
+
+
+def run_distance(args) -> None:
+    from hulk_tpu_torch.io.sketchio import SketchIOError, load_hulk_data
+
+    _setup_log(args.log_file or None)
+    if len(args.file) != 2:
+        _error_check("distance needs exactly two sketch files (-f A -f B)")
+    try:
+        a = load_hulk_data(args.file[0])
+        b = load_hulk_data(args.file[1])
+        d = a.get_distance(b, args.metric, args.kmerSize, args.algorithm)
+    except SketchIOError as e:
+        _error_check(str(e))
+        return
+    print(f"{d:.6f}")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.subcommand == "sketch":
         run_sketch(args)
+    elif args.subcommand == "smash":
+        run_smash(args)
+    elif args.subcommand == "print":
+        run_print(args)
+    elif args.subcommand == "distance":
+        run_distance(args)
     elif args.subcommand == "version":
         print(HULK_COMPAT_VERSION)
     else:

@@ -7,7 +7,9 @@ exercise the reference's N-corruption quirk:
   * `generate_fasta`: FASTA(.gz) of contigs wrapped at 60 columns, by
     default about the size of a metagenome assembly (2,000 contigs of
     1-200 kb, about 200 Mb);
-  * `kernel_batch`, `sorted_keys`, `sorted_values`: kernel inputs.
+  * `kernel_batch`, `sorted_keys`, `sorted_values`: kernel inputs;
+  * `sketch_jsons`: sketch JSON files of families of related samples, for
+    smash.
 """
 from __future__ import annotations
 
@@ -151,3 +153,45 @@ def sorted_values(rng, n_values: int, *, one_key: bool = False, tail: int = 64):
         vals = rng.integers(0, 2**64 - 1, size=n_values, dtype=np.uint64)
         vals = np.repeat(vals, rng.integers(1, 5, size=n_values))
     return np.concatenate([np.sort(vals), np.full(tail, 2**64 - 1, dtype=np.uint64)])
+
+
+def sketch_jsons(out_dir: str, n: int, *, k: int = 21, s: int = 42, families: int = 32,
+                 seed: int = 0) -> list[str]:
+    """n sketch JSONs (histosketch, KMV and KHF) of `families` families of
+    one ancestor: each family keeps the ancestor's values in a random share
+    of the slots and each sample its family's (shares uniform in [0, 1]),
+    the rest drawn anew, so that similarities spread over 0-100 within and
+    across families. Files are sample{i:05d}.json, with banner label
+    family{f}."""
+    from hulk_tpu_torch.hashes.cws import CWSTables
+    from hulk_tpu_torch.io.sketchio import HULKData
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+    from hulk_tpu_torch.sketch.minhash import KHFSketch, KMVSketch
+
+    rng = np.random.default_rng(seed)
+    nbins = k ** 4
+    no_tables = CWSTables(*(np.empty((0, 0)),) * 4)  # writing needs none
+    u64 = lambda size: rng.integers(0, 2**64 - 1, size, dtype=np.uint64, endpoint=True)  # noqa: E731
+    draw = dict(mins=lambda shape: rng.integers(0, nbins, shape),
+                weights=lambda shape: rng.exponential(1.0, shape), kmv=u64, khf=u64)
+    ancestor = {key: f((s,)) for key, f in draw.items()}
+    keep = rng.random((families, s)) < rng.random((families, 1))
+    base = {key: np.where(keep, ancestor[key], f((families, s))) for key, f in draw.items()}
+    paths = []
+    for i in range(n):
+        f = int(rng.integers(families))
+        keep = rng.random(s) < rng.random()
+        hs = HistoSketch(k, s, nbins, 1.0, tables=no_tables)
+        hs.sketch = np.where(keep, base["mins"][f], rng.integers(0, nbins, s)).astype(np.uint64)
+        hs.sketch_weights = np.where(keep, base["weights"][f], rng.exponential(1.0, s))
+        kmv = KMVSketch(k, s)
+        kmv._values = np.sort(np.where(keep, base["kmv"][f], u64(s)))
+        khf = KHFSketch(k, s)
+        khf.sketch = np.where(keep, base["khf"][f], u64(s))
+        data = HULKData(filename=f"sample{i}", banner=f"family{f}")
+        for obj in (hs, kmv, khf):
+            data.add(obj)
+        path = os.path.join(out_dir, f"sample{i:05d}.json")
+        data.write_json(path)
+        paths.append(path)
+    return paths

@@ -191,3 +191,84 @@ def test_sketch_options_card_match_cpu(extra, tmp_path, monkeypatch):
         assert cli.main(["sketch", "-f", src, "-k", "11", "-w", "5", *extra,
                          "-o", str(tmp_path / dev), "--device", dev]) == 0
     assert (tmp_path / "cuda.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True])
+def test_device_flush_candidates_card_match_cpu(prior, tmp_path, monkeypatch):
+    """The flush's candidate stage (plain PyTorch) on the card against the
+    CPU: cms_out and every live bin's estimate bit-equal, and the flush
+    applied from the card's candidates bit-identical to the exact host
+    flush."""
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+
+    dev = _card()
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    k, s, n = 11, 16, 11 ** 4
+    rng = np.random.default_rng(int(prior))
+    hist = np.where(rng.random(n) < 0.35, rng.integers(1, 60, n), 0).astype(np.int32)
+    hs = HistoSketch(k, s, n, 1.0)
+    if prior:
+        ids = np.sort(rng.choice(n, 3000, replace=False)).astype(np.int64)
+        hs.add_elements(ids, rng.integers(1, 9, 3000).astype(np.float64))
+    rows = cms_row_bins_table(n, *hs.cms.sketch.shape).astype(np.int64)
+    args = [hist, rows, hs.cms.sketch, hs.cws.c, hs.cws.b, hs.cws.exp_r]
+    cpu = mesh.device_flush_candidates(*(torch.tensor(a) for a in args))
+    card = [x.cpu() for x in mesh.device_flush_candidates(
+        *(torch.tensor(a, device=dev) for a in args))]
+    assert torch.equal(card[0], cpu[0])
+    for j in range(s):  # the estimates of the bins both picked
+        both, a, b = np.intersect1d(card[1][j].numpy(), cpu[1][j].numpy(), return_indices=True)
+        assert both.size and torch.equal(card[2][j][a], cpu[2][j][b])
+    host = HistoSketch(k, s, n, 1.0, tables=hs.cws)
+    host.cms.sketch = hs.cms.sketch.copy()
+    host.sketch, host.sketch_weights = hs.sketch.copy(), hs.sketch_weights.copy()
+    live = np.nonzero(hist)[0].astype(np.int64)
+    host.add_elements(live, hist[live].astype(np.float64))
+    assert hs.apply_flush_candidates(*(x.numpy() for x in card[1:]), mesh.FLUSH_TOP_T)
+    assert np.array_equal(hs.sketch, host.sketch)
+    assert np.array_equal(hs.sketch_weights.view(np.uint64), host.sketch_weights.view(np.uint64))
+    assert np.array_equal(card[0].numpy(), host.cms.sketch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["weightedjaccard", "jaccard"])
+def test_smash_matrix_card_matches_cpu(metric, tmp_path):
+    """smash past 64 sketches (the blocked device matrix): the CSV from the
+    card equals the CPU's."""
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.synth import sketch_jsons
+
+    _card()
+    sketch_jsons(str(tmp_path), 300, s=42, families=8, seed=5)
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["smash", "-d", str(tmp_path), "-m", metric, "-o",
+                         str(tmp_path / f"m_{dev}"), "--device", dev]) == 0
+    want = (tmp_path / "m_cpu.hulk-matrix.csv").read_bytes()
+    assert (tmp_path / "m_cuda.hulk-matrix.csv").read_bytes() == want
+
+
+@pytest.mark.gpu
+def test_interval_device_flush_card_matches_cpu(tmp_path, monkeypatch):
+    """-i with --deviceFlush and --checkpoint: the background flush worker
+    drives the card's candidate stage while the next interval streams; the
+    out.json and the checkpoint equal the CPU's, with no margin fallback."""
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.stream import pipeline
+    from hulk_tpu_torch.synth import generate
+
+    _card()
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setitem(pipeline.flush_stats, "margin_fallbacks", 0)
+    fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=6)
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["sketch", "-f", fq, "-k", "11", "-w", "5", "-i", "3000",
+                         "--deviceFlush", "--checkpoint", str(tmp_path / f"{dev}.npz"),
+                         "-o", str(tmp_path / dev), "--device", dev]) == 0
+    assert (tmp_path / "cuda.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()
+    a, b = np.load(tmp_path / "cuda.npz"), np.load(tmp_path / "cpu.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert all(np.array_equal(a[f], b[f]) for f in a.files)
+    assert pipeline.flush_stats["margin_fallbacks"] == 0

@@ -83,15 +83,30 @@ def test_long_batches_split_by_rows(monkeypatch, tmp_path):
     assert a.hulk_data.to_json_bytes() == b.hulk_data.to_json_bytes()
 
 
+def _raise_from_callback(snap):
+    raise PipelineError("--stream callback failed")
+
+
 @pytest.mark.parametrize("field,value,what", [
-    ("checkpoint_path", "x.ckpt", "--checkpoint"), ("device_flush", True, "--deviceFlush"),
-    ("on_interval", print, "--stream"),
+    pytest.param("checkpoint_path", "x.ckpt", "resume requires interval mode",
+                 id="checkpoint_path-x.ckpt---checkpoint"),
+    pytest.param("device_flush", True, "decayRatio=1.0 only", id="device_flush-True---deviceFlush"),
+    pytest.param("on_interval", _raise_from_callback, "--stream callback failed",
+                 id="on_interval-print---stream"),
 ])
 def test_unported_options_raise(field, value, what):
+    """Every option is ported now; what still raises is their misuse, with
+    hulk_tpu's messages: resume without -i, the device flush with drift, and
+    an error in the --stream callback, which runs in the flush worker and
+    must reach the caller."""
     on_interval = value if field == "on_interval" else None
-    cfg = SketchConfig(device="cpu", **({} if on_interval else {field: value}))
+    cfg = {"checkpoint_path": dict(checkpoint_path=value, resume_from=value),
+           "device_flush": dict(device_flush=value, decay_ratio=0.5),
+           "on_interval": dict(kmer_size=5, interval=1)}[field]
+    read = bytes(np.random.default_rng(0).choice(list(b"ACGT"), size=160).tolist())
     with pytest.raises(PipelineError, match=what):
-        run_sketch_pipeline(iter([b"ACGT" * 40]), cfg, on_interval=on_interval)
+        run_sketch_pipeline(iter([read]), SketchConfig(device="cpu", **cfg),
+                            on_interval=on_interval)
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
