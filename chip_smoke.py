@@ -65,8 +65,22 @@ Phases, each printing its seconds:
      path's; wall seconds, the matrix's device time and the cells
      rechecked on the host; the matrix alone at 4,096 sketches beside its
      bound; `print` and `distance` on both devices.
+  10. LSH (BASELINE config 5): (10a) a corpus of 100,000 sketches (s=42,
+     synth.lsh_corpus, seed 0) and 1,000 near-duplicate queries at t=0.9:
+     the forest's build, `sharded_lsh_search` on the card (queries/s), the
+     brute-force ranking on the card against the CPU's on 50 queries, recall
+     >= 0.95 and precision 1.0 against it, and the ranking's device time
+     beside its bound; (10b) 20,000 rows of mins in [0, 2) at t=0.5, where
+     candidates pass 25% of Q*N: the card's ranking against the host's
+     scoring, the same hit lists; (10c) two ranks (spawned processes, one
+     gloo group) each indexing half of 10a's corpus, `multiprocess_lsh_search`
+     top 64 equal to one process's; (10d) `index -r create` and `-r search`
+     over phase 9's sketches, card against --device cpu, index and stdout
+     byte-identical; (10e) phase 9's weighted smash in two ranks on the card,
+     the CSV byte-identical to phase 9's.
 Then one JSON line of the device stages that have no TPU kernel (the
-flush's candidate stage, the smash matrix) with device ms and bound, one
+flush's candidate stage, the smash matrix, the LSH ranking) with device ms
+and bound, one
 JSON line of kernels (every entry, with its launches summed over the driven
 runs of phases 3, 5, 6, 7 and 8), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure ends the run with a
@@ -121,6 +135,16 @@ SUBSET_READS = 50_000
 SUBSET_CONTIGS = 40
 # the FASTA phase's contigs: count, shortest, longest
 CONTIGS = (2000, 1000, 200_000)
+# BASELINE config 5 (phase 10a): corpus rows, queries, sketch size, threshold
+LSH = (100_000, 1_000, 42, 0.9)
+# phase 10b's corpus for the dense-candidate branch: rows, queries, value
+# range of the mins, threshold
+LSH_DENSE = (20_000, 200, 2, 0.5)
+# the equality subset of 10a (queries ranked on the CPU too), the top-K of
+# 10c, and how long a spawned rank may take
+LSH_SUBSET = 50
+LSH_TOPK = 64
+RANK_TIMEOUT = 600
 
 
 @contextlib.contextmanager
@@ -1136,6 +1160,248 @@ def smash_phase(tmp: str) -> list:
     return stages
 
 
+def lsh_bound(n: int, q: int, s: int) -> tuple[float, str]:
+    """The LSH ranking's least time: the int64 index read once and the
+    [q, n] u16 counts written once; one INT32 compare and one add a (query,
+    row, slot)."""
+    return bound(8 * n * s + 2 * q * n, 2 * q * n * s, INT32_OPS_PER_S)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv, n: int, tag: str, tmp: str) -> float:
+    """n processes, rank r running `python argv(r)`, as one gloo group on
+    this machine (HULK_* environment, a free port), each given
+    RANK_TIMEOUT; all are killed if one is late. Fails unless every rank
+    exits 0. Returns the wall seconds."""
+    env = dict(os.environ, HULK_COORDINATOR=f"127.0.0.1:{free_port()}",
+               HULK_NUM_PROCS=str(n), PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(n):
+            with open(os.path.join(tmp, f"{tag}.rank{r}.out"), "wb") as out:
+                procs.append(subprocess.Popen([sys.executable, *argv(r)], cwd=tmp,
+                                              env=dict(env, HULK_PROC_ID=str(r)),
+                                              stdin=subprocess.DEVNULL, stdout=out,
+                                              stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"{tag}.rank{r}.out"), errors="replace") as fh:
+                tail = fh.read()[-3000:]
+            raise SystemExit(f"FAIL {tag}: rank {r} exit code {p.returncode}:\n{tail}")
+    return seconds
+
+
+# one rank of phase 10c: BASELINE config 5's corpus, this rank's stripe
+# p::n indexed, the queries searched, the top-K merged across the ranks
+LSH_RANK = r"""
+import json, sys, time
+import numpy as np
+from hulk_tpu_torch.index.lshforest import LSHForest
+from hulk_tpu_torch.parallel import distributed as dist
+from hulk_tpu_torch.parallel.lsh import multiprocess_lsh_search
+from hulk_tpu_torch.synth import lsh_corpus
+
+out, n, nq, s, t, topk, seed = sys.argv[1], *map(int, sys.argv[2:5]), float(sys.argv[5]), \
+    int(sys.argv[6]), int(sys.argv[7])
+if not dist.init_distributed():
+    raise SystemExit("no process group")
+mins, queries, _ = lsh_corpus(n, nq, s, seed=seed)
+stripe = np.arange(n)[dist.rank()::dist.world_size()]
+t0 = time.perf_counter()
+forest = LSHForest(kmer_size=21, sketch_size=s, jaccard_thresh=t)
+forest.add_batch([f"s{i}" for i in stripe], mins[stripe])
+t1 = time.perf_counter()
+hits = multiprocess_lsh_search(forest, queries, stripe.astype(np.int64), thresh=t, topk=topk)
+t2 = time.perf_counter()
+with open(f"{out}.{dist.rank()}.json", "w") as fh:
+    json.dump({"build_s": t1 - t0, "search_s": t2 - t1, "rows": int(stripe.size),
+               "hits": hits if dist.rank() == 0 else None}, fh)
+dist.shutdown()
+"""
+
+
+def lsh_phase(tmp: str, dev) -> list:
+    """Phase 10 (cell f): BASELINE config 5 at its own size (10a), the
+    dense-candidate branch (10b), two ranks (10c), the `index` CLI over
+    phase 9's sketches (10d) and phase 9's weighted smash in two ranks
+    (10e)."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.index.lshforest import LSHForest
+    from hulk_tpu_torch.parallel import lsh
+    from hulk_tpu_torch.synth import lsh_corpus
+
+    n, nq, s, t = LSH
+    t0 = time.perf_counter()
+    mins, queries, qidx = lsh_corpus(n, nq, s, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forest = LSHForest(kmer_size=21, sketch_size=s, jaccard_thresh=t)
+    forest.add_batch([f"s{i}" for i in range(n)], mins)
+    t_build = time.perf_counter() - t0
+    print(f"10a corpus {n} x s={s}, {nq} queries: generated {t_gen:.3f} s, forest built "
+          f"{t_build:.3f} s (bands={forest.n_bands} rows={forest.band_rows})", flush=True)
+
+    # 10a: the search on the card's mesh, and the brute force beside it
+    lsh.search_stats["device_ranked"] = 0
+    t0 = time.perf_counter()
+    results = lsh.sharded_lsh_search([dev], forest, queries, t)
+    t_search = time.perf_counter() - t0
+    engaged = lsh.search_stats["device_ranked"]
+    n_cand = sum(forest.candidates(q).size for q in queries)
+    t0 = time.perf_counter()
+    sims, _ = lsh.sharded_sims([dev], forest, queries)
+    t_sims = time.perf_counter() - t0
+    plain, _ = lsh.sharded_sims([torch.device("cpu")], forest, queries[:LSH_SUBSET])
+    if not np.array_equal(sims[:LSH_SUBSET], plain):
+        raise SystemExit(f"FAIL 10a: the card's similarities differ from the CPU's on the "
+                         f"first {LSH_SUBSET} queries")
+    n_truth = n_hit = 0
+    for qi in range(nq):
+        truth = set(np.flatnonzero(sims[qi] >= t).tolist())
+        got = {int(name[1:]) for name, _ in results[qi]}
+        if not got <= truth or any(v != sims[qi, int(name[1:])] for name, v in results[qi]):
+            raise SystemExit(f"FAIL 10a: query {qi} returned a hit the brute force does not "
+                             f"have, or another similarity")
+        n_truth += len(truth)
+        n_hit += len(got & truth)
+    recall = n_hit / n_truth
+    if recall < 0.95 or n_truth < nq or (sims[np.arange(nq), qidx] < t).any():
+        raise SystemExit(f"FAIL 10a: recall {recall:.4f} ({n_hit} of {n_truth})")
+    print(f"10a search t={t}: {t_search:.3f} s = {nq / t_search:.1f} queries/s "
+          f"({n_cand} candidates, {100 * n_cand / (nq * n):.4f}% of Q*N; device ranking "
+          f"engaged {engaged} times); brute force on {dev} {t_sims:.3f} s wall; first {LSH_SUBSET} queries equal to the CPU's; recall "
+          f"{recall:.4f} ({n_hit} of {n_truth}), precision 1.0", flush=True)
+
+    stripes, _ = lsh.shard_index_mins([dev], forest.mins_matrix)
+    q_dev = torch.from_numpy(queries.astype(np.int64)).to(dev)
+    ms = profiled_device_ms(lambda: lsh.rank_stripe(q_dev, stripes[0]), reps=3,
+                            tag="10a LSH ranking")
+    b = lsh_bound(n, nq, s)
+    steps = -(-stripes[0].shape[0] // lsh._CHUNK) * -(-nq // lsh._QUERY_BLOCK) * s
+    print(f"10a LSH ranking alone, Q={nq} N={n} s={s} on the card: device {ms:.3f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / ms:.2f}% of bound; "
+          f"{steps} compare-and-add steps", flush=True)
+    stage = dict(name="lsh_ranking", source="hulk_tpu_torch/parallel/lsh.py",
+                 counterpart="hulk_tpu/parallel/lsh.py:47", ms=ms, bound_ms=b[0],
+                 bound_by=b[1], launches=steps, shape=f"Q={nq} N={n} s={s}")
+    del stripes, q_dev, sims, plain
+
+    # 10b: candidates past _DEVICE_RANK_DENSITY of Q*N: the card ranks
+    dn, dq, vr, dt = LSH_DENSE
+    rng = np.random.default_rng(SEED)
+    dmins = rng.integers(0, vr, (dn, s), dtype=np.uint64)
+    dqueries = dmins[rng.choice(dn, dq, replace=False)]
+    dforest = LSHForest(kmer_size=21, sketch_size=s, jaccard_thresh=dt)
+    dforest.add_batch([f"d{i}" for i in range(dn)], dmins)
+    lsh.search_stats["device_ranked"] = 0
+    t0 = time.perf_counter()
+    on_card = lsh.sharded_lsh_search([dev], dforest, dqueries, dt)
+    t_card = time.perf_counter() - t0
+    if lsh.search_stats["device_ranked"] != 1:
+        raise SystemExit("FAIL 10b: the device ranking did not engage")
+    t0 = time.perf_counter()
+    on_host = lsh.sharded_lsh_search(None, dforest, dqueries, dt)
+    t_host = time.perf_counter() - t0
+    if on_card != on_host:
+        raise SystemExit("FAIL 10b: the card's hit lists differ from the host's")
+    dens = sum(dforest.candidates(q).size for q in dqueries) / (dq * dn)
+    print(f"10b dense candidates ({dn} rows of mins in [0, {vr}), {dq} queries, t={dt}, "
+          f"candidates {100 * dens:.1f}% of Q*N): device branch {t_card:.3f} s, host branch "
+          f"{t_host:.3f} s, {sum(map(len, on_card))} hits, the same lists", flush=True)
+    del dforest, on_card, on_host
+
+    # 10c: two ranks, each indexing the stripe p::2 of 10a's corpus
+    out = os.path.join(tmp, "lsh2")
+    script = os.path.join(tmp, "lsh_rank.py")
+    with open(script, "w") as fh:
+        fh.write(LSH_RANK)
+    wall = run_ranks(lambda r: [script, out, str(n), str(nq), str(s), str(t),
+                                str(LSH_TOPK), str(SEED)], 2, "10c", tmp)
+    ranks = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as fh:
+            ranks.append(json.load(fh))
+    t0 = time.perf_counter()
+    one = lsh.multiprocess_lsh_search(forest, queries, np.arange(n, dtype=np.int64), t,
+                                      topk=LSH_TOPK)
+    t_one = time.perf_counter() - t0
+    if ranks[0]["hits"] != json.loads(json.dumps(one)):
+        raise SystemExit("FAIL 10c: the two ranks' merged hits differ from one process's")
+    print(f"10c two ranks (gloo, stripes p::2, top {LSH_TOPK}): wall {wall:.3f} s with start-up; "
+          f"in the ranks build {ranks[0]['build_s']:.3f}/{ranks[1]['build_s']:.3f} s, search "
+          f"{ranks[0]['search_s']:.3f}/{ranks[1]['search_s']:.3f} s "
+          f"({nq / max(r['search_s'] for r in ranks):.1f} queries/s); one process "
+          f"{t_one:.3f} s; merged hits equal", flush=True)
+    del forest, one, ranks
+
+    # 10d: `index` over phase 9's sketches, on the card and with --device cpu
+    pile = os.path.join(tmp, "sketches")
+    got = {}
+    for device in (dev.type, "cpu"):
+        idx = os.path.join(tmp, f"lsh_{device}.idx")
+        log = os.path.join(tmp, f"index_{device}.log")
+        t0 = time.perf_counter()
+        if cli.main(["index", "-r", "create", "-n", idx, "-d", pile, "-s", str(s), "-j", "0.9",
+                     "--device", device, "--log", log]) != 0:
+            raise SystemExit(f"FAIL 10d: index create on {device}")
+        with captured_stdout() as hits:
+            if cli.main(["index", "-r", "search", "-n", idx, "-d", pile, "-s", str(s),
+                         "-j", "0.9", "--device", device, "--log", log]) != 0:
+                raise SystemExit(f"FAIL 10d: index search on {device}")
+        with open(idx, "rb") as fh, open(log) as lf:
+            got[device] = (fh.read(), hits.getvalue(), time.perf_counter() - t0, lf.read())
+    card = got[dev.type]
+    if card[:2] != got["cpu"][:2]:
+        raise SystemExit("FAIL 10d: the index or the search stdout differs card vs CPU")
+    if f"search: on the host (one device, {dev})" not in card[3]:
+        raise SystemExit("FAIL 10d: the card's run did not log the host search of one card")
+    n_lines = card[1].count(b"\n")
+    if n_lines < 1024:
+        raise SystemExit(f"FAIL 10d: {n_lines} hits for 1,024 queries of the index itself")
+    print(f"10d index -r create/search -s {s} -j 0.9 over 1,024 sketches: card "
+          f"{card[2]:.3f} s, cpu {got['cpu'][2]:.3f} s; index "
+          f"({len(card[0])} bytes) and stdout ({n_lines} hits) byte-identical; one card, "
+          f"so the search ran on the host (hulk_tpu's one-device path)", flush=True)
+
+    # 10e: phase 9's weighted smash in two ranks on the one card
+    logs = [os.path.join(tmp, f"smash2.rank{r}.log") for r in range(2)]
+    wall = run_ranks(lambda r: ["-m", "hulk_tpu_torch", "smash", "-d", pile, "-m",
+                                "weightedjaccard", "-o", os.path.join(tmp, "smash2"),
+                                "--device", dev.type, "--log", logs[r]], 2, "10e", tmp)
+    with open(os.path.join(tmp, "smash2.hulk-matrix.csv"), "rb") as a, \
+            open(os.path.join(tmp, f"smash_weightedjaccard_{dev.type}.hulk-matrix.csv"),
+                 "rb") as b2:
+        if a.read() != b2.read():
+            raise SystemExit("FAIL 10e: the two ranks' CSV differs from phase 9's")
+    for r, log in enumerate(logs):
+        with open(log) as fh:
+            if f"process {r}/2: 512 of 1024 sketches, on {dev}" not in fh.read():
+                raise SystemExit(f"FAIL 10e: rank {r} did not split the sketches")
+    print(f"10e smash -m weightedjaccard, 1,024 sketches, two ranks on the one card: "
+          f"{wall:.3f} s wall with start-up; CSV byte-identical to phase 9's one process",
+          flush=True)
+    return [stage]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hulk_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1272,6 +1538,9 @@ def main() -> int:
 
         with phase("9 smash (e)"):
             stages += smash_phase(tmp)
+
+        with phase("10 LSH (f)"):
+            stages += lsh_phase(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

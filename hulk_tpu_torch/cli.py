@@ -1,16 +1,30 @@
-"""The port's command line: `sketch`, `smash`, `print`, `distance` and
-`version`.
+"""The port's command line: `sketch`, `smash`, `index`, `print`, `distance`
+and `version`.
 
 Counterpart of hulk_tpu/cli.py (flags and defaults at :45-104, run_sketch at
-:120, run_smash at :287, print and distance at :570-600, main at :718).
-Flag names, shorthands and defaults are hulk's (themselves the Go
-reference's), plus --device, so that
+:120, run_smash at :287 and _run_smash_distributed at :434, print and
+distance at :570-600, run_index at :603, main at :718). Flag names,
+shorthands and defaults are hulk's (themselves the Go reference's), plus
+--device, so that
 
     python -m hulk_tpu_torch sketch -f reads.fq.gz -k 21 -w 9 -s 42 -o out
     python -m hulk_tpu_torch smash -d sketches/ -m weightedjaccard -o matrix
+    python -m hulk_tpu_torch index -r create -n my.idx -d sketches/ -s 42
+    python -m hulk_tpu_torch index -r search -n my.idx -d queries/ -s 42 -j 0.9
 
-write the same bytes as `hulk sketch` and `hulk smash` do. `index` and the
-runs of several processes are not in the port yet.
+write the same bytes as `hulk sketch`, `hulk smash` and `hulk index` do.
+
+Several processes (parallel/distributed.py) join one gloo group from the
+environment, for example two on one machine:
+
+    HULK_COORDINATOR=localhost:29500 HULK_NUM_PROCS=2 HULK_PROC_ID=0 \
+        python -m hulk_tpu_torch smash -d sketches/ -m weightedjaccard -o m &
+    HULK_COORDINATOR=localhost:29500 HULK_NUM_PROCS=2 HULK_PROC_ID=1 \
+        python -m hulk_tpu_torch smash -d sketches/ -m weightedjaccard -o m
+
+Each process runs on the devices it sees (CUDA_VISIBLE_DEVICES gives each
+its own cards; add --device cpu for the plain versions) and process 0 alone
+writes. `sketch` runs in one process only, for now.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ import os
 import sys
 import time
 
+from hulk_tpu_torch.parallel import distributed as dist
 from hulk_tpu_torch.version import HULK_COMPAT_VERSION
 
 log = logging.getLogger("hulk")
@@ -92,6 +107,15 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("-m", "--metric", type=str, default="jaccard", help="which distance metric to use [jaccard, weightedjaccard]")
     pm.add_argument("--bannerMatrix", action="store_true", help="write a matrix file for banner")
 
+    pi = sub.add_parser("index", help="Create or search an LSH Forest index of histosketches")
+    _add_global_flags(pi)
+    pi.add_argument("-r", "--run", type=str, required=True, help="index operation [create, add, search]")
+    pi.add_argument("-n", "--indexName", type=str, required=True, help="index file name")
+    pi.add_argument("-j", "--jsThresh", type=float, default=0.90, help="Jaccard similarity threshold for search")
+    pi.add_argument("-d", "--sketchDir", type=str, default="./", help="directory containing sketches to index/query")
+    pi.add_argument("--recursive", action="store_true", help="recursively search the supplied sketch directory")
+    pi.add_argument("-s", "--sketchSize", type=int, default=50, help="sketch size the index holds")
+
     pp = sub.add_parser("print", help="print sketch values as CSV rows (v0.0.2 surface)")
     _add_global_flags(pp)
     pp.add_argument("-f", "--file", action="append", default=[], required=True, help="sketch JSON file(s) to print")
@@ -151,6 +175,12 @@ def run_sketch(args) -> None:
     log.info("checking parameters...")
 
     fastq = _split_fastq_args(args.fastq)
+    if dist.world_size() > 1:
+        # hulk_tpu shards the files over the processes and merges their
+        # states exactly; until the port does, every process would sketch
+        # every file and write the same out.json
+        _error_check(f"sketch over several processes is not ported yet: run one process "
+                     f"({dist.world_size()} were started; unset HULK_COORDINATOR)")
 
     # sketchParamCheck (cmd/sketch.go:185-214)
     out_dir = os.path.dirname(args.outFile)
@@ -289,6 +319,26 @@ def run_smash(args) -> None:
         sketch_dir += "/"
     try:
         json_files = collect_jsons(sketch_dir, args.recursive)
+    except SketchIOError as e:
+        _error_check(str(e))
+        return
+
+    # several processes: shard the JSON loads round robin, allgather the
+    # [n_i, s] mins+weights, compute each process's stripe of matrix rows on
+    # its devices, allgather the rows; process 0 writes. Only the
+    # weighted-Jaccard histosketch path (the reference smash default) is
+    # split; every other combination loads everything in every process, and
+    # process 0 alone writes
+    if (
+        dist.world_size() > 1
+        and args.metric == "weightedjaccard"
+        and args.algorithm == "histosketch"
+        and not args.bannerMatrix
+        and len(json_files) >= 2
+    ):
+        _run_smash_distributed(args, sorted(json_files))
+        return
+    try:
         sketches = {jf: load_hulk_data(jf) for jf in json_files}
     except SketchIOError as e:
         _error_check(str(e))
@@ -327,6 +377,9 @@ def run_smash(args) -> None:
     except SketchIOError as e:
         _error_check(str(e))
         return
+    if dist.rank() != 0:
+        log.info("finished")  # only process 0 writes output files
+        return
     with open(matrix_path, "w", newline="") as fh:
         wr = csv.writer(fh, lineterminator="\n")
         wr.writerow(ordering)
@@ -349,6 +402,79 @@ def run_smash(args) -> None:
                 wr.writerow(row)
         log.info("\twritten banner matrix to disk: %s", banner_path)
     log.info("finished")
+
+
+def _run_smash_distributed(args, ordering: list) -> None:
+    """Weighted-Jaccard smash over several processes (see run_smash): this
+    process loads its round-robin shard of `ordering`, the mins and weights
+    are allgathered, each process computes its stripe of rows on its
+    devices, the rows are allgathered, cells within wjd_recheck_margin of a
+    %.2f boundary are recomputed with get_wjd from the gathered arrays (the
+    reference's subject-weights semantics), and process 0 writes the CSV."""
+    import csv
+
+    import numpy as np
+
+    from hulk_tpu_torch.io.sketchio import SketchIOError, _weights_of, load_hulk_data
+    from hulk_tpu_torch.ops import distance
+    from hulk_tpu_torch.parallel.smash import distributed_pairwise_wjd
+    from hulk_tpu_torch.sketch.distances import get_wjd
+
+    devices = _devices(args.device)
+    my_files = dist.process_read_shard(ordering)
+    local_mins, local_weights = [], []
+    for jf in my_files:
+        try:
+            obj = load_hulk_data(jf).find_sketch(args.kmerSize, args.algorithm)
+        except SketchIOError as e:
+            _error_check(str(e))
+            return
+        local_mins.append(np.asarray(obj.get_sketch(), dtype=np.uint64))
+        local_weights.append(np.asarray(_weights_of(obj), dtype=np.float64))
+    log.info("\tprocess %d/%d: %d of %d sketches, on %s", dist.rank(), dist.world_size(),
+             len(my_files), len(ordering), ", ".join(map(str, devices)))
+    try:
+        mins, weights, d = distributed_pairwise_wjd(local_mins, local_weights,
+                                                    devices=devices)
+    except ValueError as e:  # sketch lengths differ, seen alike by every process
+        _error_check(str(e))
+        return
+    if mins.shape[0] != len(ordering):
+        _error_check("sketch shard gather lost rows")
+        return
+
+    cells = 100.0 - d * 100.0
+    frac = np.abs(cells * 100.0 - np.floor(cells * 100.0) - 0.5)
+    risky = np.argwhere(frac < distance.wjd_recheck_margin(mins.shape[1]) * 10000.0)
+    f64 = mins.astype(np.float64)  # the host path compares f64 casts
+    for i, j in risky:
+        d[i, j] = get_wjd(f64[i], f64[j], weights[i], weights[i])
+    distance.recheck_stats["cells"] += len(risky)
+    if len(risky):
+        log.info("\trechecked %d boundary cells on the host", len(risky))
+
+    if dist.rank() == 0:
+        matrix_path = args.outFile + ".hulk-matrix.csv"
+        with open(matrix_path, "w", newline="") as fh:
+            wr = csv.writer(fh, lineterminator="\n")
+            wr.writerow(ordering)
+            for row in d:
+                wr.writerow([f"{100 - v * 100:.2f}" for v in row])
+        log.info("\twritten similarity matrix to disk: %s", matrix_path)
+    log.info("finished")
+
+
+def _devices(device: str) -> list:
+    """The devices this process computes on: every visible card for
+    `cuda`, else the one device named. `cuda` with no card is an error."""
+    import torch
+
+    from hulk_tpu_torch.parallel.mesh import make_sketch_mesh
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        _error_check(f"device {device!r} requested but no CUDA device is available "
+                     "(use --device cpu for the plain PyTorch versions)")
+    return make_sketch_mesh() if device == "cuda" else [torch.device(device)]
 
 
 def _smash_matrix_device(sketches, ordering, metric, ksize, algo, device):
@@ -422,22 +548,129 @@ def run_distance(args) -> None:
     print(f"{d:.6f}")
 
 
+# ---- index ----------------------------------------------------------------
+
+def run_index(args) -> None:
+    from hulk_tpu_torch.index.lshforest import LSHForest, LSHIndexError
+    from hulk_tpu_torch.io.sketchio import SketchIOError, collect_jsons, load_hulk_data
+
+    _setup_log(args.log_file or None)
+    log.info("this is hulk (version %s)", HULK_COMPAT_VERSION)
+    log.info("starting the index subcommand")
+    if args.run not in ("create", "add", "search"):
+        _error_check(f"unknown index operation: {args.run} (use create/add/search)")
+
+    sketch_dir = args.sketchDir
+    if not sketch_dir.endswith("/"):
+        sketch_dir += "/"
+
+    def load_mins():
+        out = []
+        for jf in collect_jsons(sketch_dir, args.recursive):
+            # the index itself may live in the sketch directory; it is never
+            # a query/input sketch
+            if os.path.abspath(jf) == os.path.abspath(args.indexName):
+                continue
+            data = load_hulk_data(jf)
+            obj = data.find_sketch(args.kmerSize, "histosketch")
+            out.append((jf, obj.get_sketch()))
+        return out
+
+    def check_size(got: int, what: str) -> None:
+        if got != args.sketchSize:
+            _error_check(
+                f"sketch size mismatch: {what} has {got} values but the index "
+                f"holds sketches of size {args.sketchSize} (pass -s {got})"
+            )
+
+    import numpy as np
+
+    try:
+        if args.run in ("create", "add"):
+            entries = load_mins()
+            if not entries:
+                _error_check(
+                    f"no sketches found in the supplied directory: {sketch_dir}"
+                )
+            check_size(len(entries[0][1]), entries[0][0])
+            if args.run == "create":
+                forest = LSHForest(
+                    kmer_size=args.kmerSize,
+                    sketch_size=args.sketchSize,
+                    jaccard_thresh=args.jsThresh,
+                )
+            else:
+                forest = LSHForest.load_json(args.indexName)
+                check_size(forest.sketch_size, f"index {args.indexName}")
+            forest.add_batch(
+                [name for name, _ in entries],
+                np.stack([m for _, m in entries]),
+            )
+            forest.write_json(args.indexName)
+            log.info(
+                "\tindexed %d sketches (bands=%d rows=%d) -> %s",
+                len(forest.names), forest.n_bands, forest.band_rows, args.indexName,
+            )
+        else:  # search
+            forest = LSHForest.load_json(args.indexName)
+            check_size(forest.sketch_size, f"index {args.indexName}")
+            queries = load_mins()
+            if not queries:
+                _error_check(
+                    f"no query sketches found in the supplied directory: {sketch_dir}"
+                )
+            for name, mins in queries:
+                check_size(len(mins), name)
+            devices = _devices(args.device)
+            if len(devices) > 1:
+                # index rows striped over the devices: each ranks its own 1/D
+                # of the corpus where the candidates are dense
+                # (parallel/lsh.py)
+                from hulk_tpu_torch.parallel.lsh import sharded_lsh_search
+
+                log.info("\tsearch: index sharded over %d devices", len(devices))
+                qmat = np.stack([m for _, m in queries]).astype(np.uint64)
+                all_hits = sharded_lsh_search(devices, forest, qmat, args.jsThresh)
+            else:
+                log.info("\tsearch: on the host (one device, %s)", devices[0])
+                all_hits = [
+                    forest.search(mins, args.jsThresh) for _, mins in queries
+                ]
+            for (name, _), hits in zip(queries, all_hits):
+                if not hits:
+                    log.info("\tquery %s: no matches >= %.2f", name, args.jsThresh)
+                for hit, sim in hits:
+                    print(f"{name},{hit},{sim:.4f}")
+            log.info("\tsearched %d queries against %d entries", len(queries),
+                     len(forest.names))
+    except (LSHIndexError, SketchIOError) as e:
+        _error_check(str(e))
+        return
+    log.info("finished")
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.subcommand == "sketch":
-        run_sketch(args)
-    elif args.subcommand == "smash":
-        run_smash(args)
-    elif args.subcommand == "print":
-        run_print(args)
-    elif args.subcommand == "distance":
-        run_distance(args)
-    elif args.subcommand == "version":
-        print(HULK_COMPAT_VERSION)
-    else:
-        build_parser().print_help()
-        return 1
-    return 0
+    dist.init_distributed()
+    try:
+        args = build_parser().parse_args(argv)
+        if args.subcommand == "sketch":
+            run_sketch(args)
+        elif args.subcommand == "smash":
+            run_smash(args)
+        elif args.subcommand == "index":
+            run_index(args)
+        elif args.subcommand == "print":
+            run_print(args)
+        elif args.subcommand == "distance":
+            run_distance(args)
+        elif args.subcommand == "version":
+            print(HULK_COMPAT_VERSION)
+        else:
+            build_parser().print_help()
+            return 1
+        return 0
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -69,11 +69,11 @@ def wjd_block_body(a: torch.Tensor, wabs: torch.Tensor, union: torch.Tensor,
     return 1.0 - inter / union[:, None]
 
 
-def _tiles(n: int, block: int, col_block: int, tile, post, device) -> np.ndarray:
-    """Run tile(i0, i1, j0, j1) over the [n, n] matrix in row blocks and
+def _tiles(nr: int, nc: int, block: int, col_block: int, tile, post) -> np.ndarray:
+    """Run tile(i0, i1, j0, j1) over an [nr, nc] matrix in row blocks and
     column blocks, copying each result back behind a window of
     MAX_PENDING_BLOCKS tiles; post maps a fetched tile to f64."""
-    out = np.empty((n, n), dtype=np.float64)
+    out = np.empty((nr, nc), dtype=np.float64)
     pend: list = []
 
     def drain(keep: int) -> None:
@@ -81,10 +81,10 @@ def _tiles(n: int, block: int, col_block: int, tile, post, device) -> np.ndarray
             i0, i1, j0, j1, t = pend.pop(0)
             out[i0:i1, j0:j1] = post(t.cpu().numpy())
 
-    for i0 in range(0, n, block):
-        i1 = min(i0 + block, n)
-        for j0 in range(0, n, col_block):
-            j1 = min(j0 + col_block, n)
+    for i0 in range(0, nr, block):
+        i1 = min(i0 + block, nr)
+        for j0 in range(0, nc, col_block):
+            j1 = min(j0 + col_block, nc)
             pend.append((i0, i1, j0, j1, tile(i0, i1, j0, j1)))
             drain(MAX_PENDING_BLOCKS)
     drain(0)
@@ -102,23 +102,34 @@ def pairwise_jaccard_sim(mins, *, block: int = 512, col_block: int = 4096,
     count / s in f64 (exact: integer counts, one IEEE divide)."""
     m = _f64_mins(mins, device)
     n, s = m.shape
-    return _tiles(n, block, col_block,
+    return _tiles(n, n, block, col_block,
                   lambda i0, i1, j0, j1: jaccard_block(m[i0:i1], m[j0:j1]),
-                  lambda c: c / s, device)
+                  lambda c: c / s)
 
 
-def pairwise_weighted_jaccard_dist(mins, weights, *, block: int = 512,
-                                   col_block: int = 4096, device="cuda") -> np.ndarray:
-    """[N, s] u64 mins + f64 weights -> [N, N] weighted Jaccard distance with
-    the reference's subject-weights semantics (row = subject)."""
-    m = _f64_mins(mins, device)
+def weighted_jaccard_rows(mins, weights, lo: int, hi: int, devices, *, block: int = 512,
+                          col_block: int = 4096) -> np.ndarray:
+    """Rows [lo, hi) of the [N, N] weighted Jaccard distance matrix of [N, s]
+    u64 mins + f64 weights, with the reference's subject-weights semantics
+    (row = subject); row blocks go round robin over `devices`, each of which
+    holds every row's mins for the columns."""
     wabs = np.abs(np.asarray(weights, dtype=np.float64))
     union = np.zeros(wabs.shape[0])
     for k in range(wabs.shape[1]):  # left to right, as get_wjd sums
         union += wabs[:, k]
-    wa = torch.from_numpy(wabs).to(device)
-    un = torch.from_numpy(union).to(device)
-    return _tiles(m.shape[0], block, col_block,
-                  lambda i0, i1, j0, j1: wjd_block_body(m[i0:i1], wa[i0:i1], un[i0:i1],
-                                                        m[j0:j1]),
-                  lambda d: d, device)
+    m = [_f64_mins(mins, d) for d in devices]
+    wa = [torch.from_numpy(wabs[lo:hi]).to(d) for d in devices]
+    un = [torch.from_numpy(union[lo:hi]).to(d) for d in devices]
+
+    def tile(i0, i1, j0, j1):
+        d = (i0 // block) % len(devices)
+        return wjd_block_body(m[d][lo + i0:lo + i1], wa[d][i0:i1], un[d][i0:i1], m[d][j0:j1])
+
+    return _tiles(hi - lo, wabs.shape[0], block, col_block, tile, lambda d: d)
+
+
+def pairwise_weighted_jaccard_dist(mins, weights, *, block: int = 512,
+                                   col_block: int = 4096, device="cuda") -> np.ndarray:
+    """The whole [N, N] weighted Jaccard distance matrix on one device."""
+    return weighted_jaccard_rows(mins, weights, 0, len(mins), [device], block=block,
+                                 col_block=col_block)

@@ -42,7 +42,7 @@ def _block_values(rows: np.ndarray, lens: np.ndarray, *, k: int, w: int, cont: b
 
 def long_read_minimizers(codes: np.ndarray, *, k: int, w: int,
                          block: int = DEFAULT_BLOCK, group: int = DEFAULT_GROUP,
-                         device="cpu") -> np.ndarray:
+                         device="cuda") -> np.ndarray:
     """Distinct minimizer values (sorted uint64) of ONE read of any length.
 
     codes: [L] uint8 base codes (0-4). Works for any L >= w + k - 1 and is

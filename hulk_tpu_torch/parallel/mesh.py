@@ -1,10 +1,12 @@
-"""The device stage of the no-drift histosketch flush (--deviceFlush).
+"""The device stage of the no-drift histosketch flush (--deviceFlush), and
+the dp "mesh" of the devices a process ranks on.
 
-Counterpart of hulk_tpu/parallel/mesh.py (FLUSH_MARGIN_REL, FLUSH_TOP_T and
-the function that make_device_flush_candidates builds), on one PyTorch
-device: plain PyTorch, no hand-written kernel. The multi-device pieces of
-that module (the dp stream step, the mp sharding of the CWS tables) are not
-here yet.
+Counterpart of hulk_tpu/parallel/mesh.py (FLUSH_MARGIN_REL, FLUSH_TOP_T,
+the function that make_device_flush_candidates builds, and
+make_sketch_mesh's dp axis): plain PyTorch, no hand-written kernel. A mesh
+here is a list of torch.devices, each given a contiguous stripe of rows.
+The other multi-device pieces of that module (the dp stream step, the mp
+sharding of the CWS tables) are not here yet.
 """
 from __future__ import annotations
 
@@ -19,6 +21,21 @@ import torch
 # the device's transcendentals.
 FLUSH_MARGIN_REL = 1e-12
 FLUSH_TOP_T = 8
+
+
+def make_sketch_mesh(n_dp: int | None = None, devices=None) -> list:
+    """The first n_dp of `devices` (default: every CUDA device visible to
+    this process) as a list of torch.devices."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_dp is not None:
+        if n_dp > len(devices):
+            raise ValueError(f"mesh of {n_dp} devices requested, {len(devices)} available")
+        devices = devices[:n_dp]
+    if not devices:
+        raise ValueError("no device for the mesh (no CUDA device is visible)")
+    return devices
 
 
 def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH_TOP_T):

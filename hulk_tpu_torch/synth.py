@@ -9,7 +9,8 @@ exercise the reference's N-corruption quirk:
     1-200 kb, about 200 Mb);
   * `kernel_batch`, `sorted_keys`, `sorted_values`: kernel inputs;
   * `sketch_jsons`: sketch JSON files of families of related samples, for
-    smash.
+    smash;
+  * `lsh_corpus`: sketch mins with near-duplicate queries, for LSH search.
 """
 from __future__ import annotations
 
@@ -195,3 +196,18 @@ def sketch_jsons(out_dir: str, n: int, *, k: int = 21, s: int = 42, families: in
         data.write_json(path)
         paths.append(path)
     return paths
+
+
+def lsh_corpus(n: int, nq: int, s: int = 42, seed: int = 0):
+    """(mins [n, s], queries [nq, s], qidx [nq]): u64 mins uniform in
+    [0, 2^40), and each query a copy of corpus row qidx with 2 slots drawn
+    anew (a near-duplicate at similarity (s-2)/s or more). The counterpart
+    of scripts/lsh_demo.py's make_corpus, draw for draw."""
+    rng = np.random.default_rng(seed)
+    mins = rng.integers(0, 2**40, (n, s), dtype=np.uint64)
+    qidx = rng.choice(n, nq, replace=False)
+    queries = mins[qidx].copy()
+    for qi in range(nq):
+        ch = rng.choice(s, 2, replace=False)
+        queries[qi, ch] = rng.integers(0, 2**40, 2, dtype=np.uint64)
+    return mins, queries, qidx

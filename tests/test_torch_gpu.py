@@ -272,3 +272,27 @@ def test_interval_device_flush_card_matches_cpu(tmp_path, monkeypatch):
     assert sorted(a.files) == sorted(b.files)
     assert all(np.array_equal(a[f], b[f]) for f in a.files)
     assert pipeline.flush_stats["margin_fallbacks"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,nq", [(31, 3), (20_000, 200), (9000, 700)])
+def test_sharded_sims_card_matches_cpu(n, nq):
+    """The LSH ranking on the card (every visible card, and cuda:0 alone)
+    against the CPU's plain run: the same [Q, N] similarities, padding
+    dropped; 700 queries take several query blocks a step."""
+    from hulk_tpu_torch.index.lshforest import LSHForest
+    from hulk_tpu_torch.parallel.lsh import sharded_sims
+    from hulk_tpu_torch.parallel.mesh import make_sketch_mesh
+    from hulk_tpu_torch.synth import lsh_corpus
+
+    dev = _card()
+    mins, queries, qidx = lsh_corpus(n, nq, 42, seed=n)
+    mins[: n // 2, :21] = 3  # half the rows share half their slots
+    queries[qidx < n // 2, :21] = 3
+    forest = LSHForest(kmer_size=21, sketch_size=42, jaccard_thresh=0.9)
+    forest.add_batch([f"s{i}" for i in range(n)], mins)
+    want, _ = sharded_sims([torch.device("cpu")], forest, queries)
+    for devices in (make_sketch_mesh(), [dev]):
+        got, got_n = sharded_sims(devices, forest, queries)
+        assert got_n == n and np.array_equal(got, want)
+    assert (want[np.arange(nq), qidx] >= 40 / 42).all()

@@ -43,7 +43,7 @@ def test_cont_window_matches_reference(k, w):
 ])
 def test_long_read_minimizers_match_reference(k, w, L, block, group):
     codes = read_codes(np.random.default_rng(L + k), L)
-    got = long_read_minimizers(codes, k=k, w=w, block=block, group=group)
+    got = long_read_minimizers(codes, k=k, w=w, block=block, group=group, device="cpu")
     want = jax_long_read(codes, k=k, w=w, block=block, group=group)
     assert got.dtype == np.uint64 and got.size > 0
     assert np.array_equal(got, want)
@@ -57,13 +57,13 @@ def test_long_read_minimizers_match_one_piece(k, w):
     vals, mask = tm.minimizer_scan(torch.from_numpy(codes[None, :]),
                                    torch.tensor([L], dtype=torch.int32), k, w)
     whole = np.sort(vals[mask].numpy().view(np.uint64))
-    got = long_read_minimizers(codes, k=k, w=w, block=1500, group=4)
+    got = long_read_minimizers(codes, k=k, w=w, block=1500, group=4, device="cpu")
     assert np.array_equal(got, whole)
 
 
 def test_long_read_shorter_than_window_raises():
     with pytest.raises(ValueError, match="w \\+ k - 1"):
-        long_read_minimizers(np.zeros(10, dtype=np.uint8), k=11, w=5)
+        long_read_minimizers(np.zeros(10, dtype=np.uint8), k=11, w=5, device="cpu")
 
 
 def contig_file(path):
