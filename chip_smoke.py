@@ -7,7 +7,8 @@ Phases, each printing its seconds:
   1. device: the card's name, count and power limit; build the CUDA kernels
      (one nvcc process per source, started together, and a link into one
      library) and the native host runtime (g++); print each build's seconds
-     and ptxas's register/spill lines.
+     and ptxas's register/spill lines, and the seconds of the backend-stall
+     watchdog's probe (16 elements to the card and back).
   2. kernels: each of the six kernel entries (five C entries, the u8 one
      also in its cont form) against its plain PyTorch version on the card,
      at the shapes the driven paths launch (with random pad past each read
@@ -78,11 +79,28 @@ Phases, each printing its seconds:
      over phase 9's sketches, card against --device cpu, index and stdout
      byte-identical; (10e) phase 9's weighted smash in two ranks on the card,
      the CSV byte-identical to phase 9's.
+  11. sharded sketch: the data-parallel stream and the striped device flush
+     on a mesh that names the one card twice ([cuda:0, cuda:0]); none of it
+     measures scaling. (11a) run_sketch_pipeline --kmv --khf --hmh over
+     phase 3's reads: out.json byte-identical to phase 5's, the packed
+     minimizer and the fused binning pass once per (batch, shard), reads/s
+     beside phase 5's; (11b) the same at -k 31 (the two-sort step in each
+     shard): out.json byte-identical to phase 6's, the values entry once per
+     (batch, shard); (11c) --deviceFlush with the CWS tables striped over
+     the two entries, -i 1000000 over phase 8's files 0-1: out.json
+     byte-identical to a one-device host-flush run, no margin fallback, the
+     striped candidate stage bit-equal to the one-device stage and its
+     device time beside its bound; (11d) `sketch --kmv --khf --hmh` in two
+     ranks sharing the card over phase 8's files 0-3: rank 0's out.json
+     byte-identical to one process's, rank 1 writes nothing, both runs'
+     wall seconds; (11e) sharded_histogram_step over [cuda:0, cuda:0] on one
+     [16384, 160] batch equal to the fused step's histogram and count, with
+     hulk_jump_hash launched.
 Then one JSON line of the device stages that have no TPU kernel (the
-flush's candidate stage, the smash matrix, the LSH ranking) with device ms
-and bound, one
+flush's candidate stage, one device and striped, the smash matrix, the LSH
+ranking) with device ms and bound, one
 JSON line of kernels (every entry, with its launches summed over the driven
-runs of phases 3, 5, 6, 7 and 8), the card's name and power limit,
+runs of phases 3, 5, 6, 7, 8 and 11), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure ends the run with a
 non-zero exit code and no result line. Nothing is written into the
 repository except the gitignored kernel build directory; the inputs and
@@ -879,6 +897,28 @@ def generate_files(tmp: str, first: str) -> list[str]:
     return [first, *paths]
 
 
+def fq_histogram(fq: str, device):
+    """The int32 histogram of fq's reads (k=21, w=9) on the device, as one
+    interval's flush gets it."""
+    from hulk_tpu_torch.stream.fastq import batch_reads_native
+    from hulk_tpu_torch.stream.pipeline import SketchConfig, _DeviceStream
+
+    cfg = SketchConfig(kmer_size=21, window_size=9, sketch_size=42, device="cuda")
+    dev = _DeviceStream(cfg, NBINS, device)
+    for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), raw=True):
+        dev.feed(b)
+    return dev.take_hist()
+
+
+def flush_stage_bound(depth: int, width: int, s: int = 42) -> tuple[float, str]:
+    """The candidate stage's least time. Bytes: histogram, row table, tables
+    read once, CMS read and written; operations: about 6 FP64 a (slot, bin)
+    (subtract, exp, 2 multiplies, divide, compare) and 4 a (row, bin) of
+    the CMS scan."""
+    nbytes = 4 * NBINS + 8 * depth * NBINS + 3 * 8 * s * NBINS + 2 * 8 * depth * width
+    return bound(nbytes, 6 * s * NBINS + 4 * depth * NBINS, FP64_OPS_PER_S)
+
+
 def flush_stage_times(fq: str) -> dict:
     """One interval's flush, alone, on the histogram of fq's 1M reads: the
     device candidate stage's device time (profiler) beside its bound, the
@@ -891,25 +931,18 @@ def flush_stage_times(fq: str) -> dict:
     from hulk_tpu_torch.hashes.cws import get_cws_tables
     from hulk_tpu_torch.parallel import mesh
     from hulk_tpu_torch.sketch.histosketch import HistoSketch
-    from hulk_tpu_torch.stream.fastq import batch_reads_native
-    from hulk_tpu_torch.stream.pipeline import SketchConfig, _DeviceFlusher, _DeviceStream
+    from hulk_tpu_torch.stream.pipeline import _DeviceFlusher
 
-    cfg = SketchConfig(kmer_size=21, window_size=9, sketch_size=42, device="cuda")
-    dev = _DeviceStream(cfg, NBINS)
-    for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), raw=True):
-        dev.feed(b)
-    hist = dev.take_hist()
+    hist = fq_histogram(fq, torch.device("cuda", 0))
     tables = get_cws_tables(42, NBINS)
-    flusher = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS, dev.device)
-    stage_ms = profiled_device_ms(lambda: mesh.device_flush_candidates(
-        hist, flusher.row_bins, flusher.cms, *flusher.tables), tag="device flush candidate stage")
+    flusher = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS,
+                             [hist.device])
+    stage_ms = profiled_device_ms(lambda: mesh.striped_flush_candidates(
+        hist, flusher.row_bins, flusher.cms, flusher.stripes),
+        tag="device flush candidate stage")
     depth, width = flusher.cms.shape
     used = int((hist != 0).sum())
-    # bytes: histogram, row table, tables read once, CMS read and written;
-    # operations: about 6 FP64 a (slot, bin) (subtract, exp, 2 multiplies,
-    # divide, compare) and 4 a (row, bin) of the CMS scan
-    nbytes = 4 * NBINS + 8 * depth * NBINS + 3 * 8 * 42 * NBINS + 2 * 8 * depth * width
-    stage_bound = bound(nbytes, 6 * 42 * NBINS + 4 * depth * NBINS, FP64_OPS_PER_S)
+    stage_bound = flush_stage_bound(depth, width)
 
     def wall(fn) -> float:
         times = []
@@ -920,7 +953,8 @@ def flush_stage_times(fq: str) -> dict:
         return sorted(times)[1]
 
     def device_flush():
-        f = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS, dev.device)
+        f = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS,
+                           [hist.device])
         t0 = time.perf_counter()
         f.flush_from(hist)
         torch.cuda.synchronize()
@@ -945,9 +979,10 @@ def flush_stage_times(fq: str) -> dict:
                 shape=f"nbins={NBINS} s=42 depth={depth} width={width}")
 
 
-def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> list:
+def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[list, list]:
     """Phase 8 (cell d): BASELINE config 4's stream, 10M reads in ten files,
-    -i 1000000 -x 0.9, and the interval machinery around it."""
+    -i 1000000 -x 0.9, and the interval machinery around it. Returns the
+    device stages and the ten files."""
     from hulk_tpu_torch.stream import pipeline
     from hulk_tpu_torch.stream.fastq import batch_reads_native
 
@@ -1049,7 +1084,7 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> list:
             raise SystemExit(f"FAIL 8d {label}: stdout or out.json differs card vs CPU")
         print(f"8d {label}, first {SUBSET_READS} reads: stdout ({len(got['cuda'][0])} bytes) "
               f"and out.json byte-identical card vs CPU", flush=True)
-    return [stage]
+    return [stage], files
 
 
 def matrix_bound(n: int, s: int, weighted: bool) -> tuple[float, str]:
@@ -1402,6 +1437,200 @@ def lsh_phase(tmp: str, dev) -> list:
     return [stage]
 
 
+def shard_steps(src: str, R: int, ndev: int) -> int:
+    """The (batch, shard) steps of the sharded stream over src: each batch
+    split by rows as on one device (MAX_BATCH_POSITIONS), each piece into
+    ndev blocks of ceil(rows / ndev); a block with no rows steps nothing."""
+    from hulk_tpu_torch.parallel.mesh import stripes
+    from hulk_tpu_torch.stream.fastq import batch_reads_native
+    from hulk_tpu_torch.stream.pipeline import MAX_BATCH_POSITIONS
+
+    n = 0
+    for b in batch_reads_native([src], batch_size=R, raw=True):
+        rows = max(1, min(R, MAX_BATCH_POSITIONS // b.bucket))
+        for start in range(0, b.lengths.shape[0], rows):
+            m = min(rows, b.lengths.shape[0] - start)
+            n += sum(lo < m for lo, _ in stripes(rows, ndev))
+    return n
+
+
+def sharded_run(tag: str, srcs: list, tmp: str, mesh_devs: list, **kw):
+    """run_sketch_pipeline over srcs on the mesh (k=21, w=9, s=42 unless kw
+    says otherwise; the CLI's file name), launch-counted: every count set
+    to 0 just before, read just after. Writes <tag>.json; returns
+    (seconds, counts, out.json bytes)."""
+    import torch
+
+    from hulk_tpu_torch.stream.pipeline import SketchConfig, run_sketch_pipeline
+
+    kw = dict(dict(kmer_size=21, window_size=9, sketch_size=42), **kw)
+    cfg = SketchConfig(file_name=",".join(srcs) + ",", input_paths=srcs, device="cuda",
+                       devices=mesh_devs, **kw)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sketch_pipeline(None, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    path = os.path.join(tmp, f"{tag}.json")
+    res.hulk_data.write_json(path)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    print(f"{tag}: {seconds:.3f} s, {res.minimizer_count} minimizers, launches {counts}",
+          flush=True)
+    return seconds, counts, data
+
+
+def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
+                  t5: float) -> list:
+    """Phase 11 (cell g): the data-parallel stream and the striped device
+    flush on a mesh that names the one card twice, two ranks sharing the
+    card, and sharded_histogram_step. t5: phase 5's seconds."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.hashes.cws import get_cws_tables
+    from hulk_tpu_torch.ops.device_step import (
+        bin_scatter_keys,
+        sorted_batch_keys,
+        stream_bucket,
+    )
+    from hulk_tpu_torch.ops.minimizer import minimizer_window_packed
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+    from hulk_tpu_torch.stream import pipeline
+    from hulk_tpu_torch.synth import kernel_batch
+
+    two = [dev, dev]
+    with open(os.path.join(tmp, "sketches.json"), "rb") as fh:
+        want_a = fh.read()
+    with open(os.path.join(tmp, "two_sort.json"), "rb") as fh:
+        want_b = fh.read()
+
+    # 11a: --kmv --khf --hmh over phase 3's reads, rows sharded in two
+    steps = shard_steps(fq, 16384, 2)
+    seconds, counts, got = sharded_run("11a", [fq], tmp, two, kmv=True, khf=True, hmh=True)
+    path_launches["11a"] = counts
+    if got != want_a:
+        raise SystemExit("FAIL 11a: the sharded out.json differs from phase 5's")
+    if (counts["minimizer_window_packed"] != steps or counts["bin_scatter_keys"] != steps
+            or sum(counts.values()) != 2 * steps):
+        raise SystemExit(f"FAIL 11a: launches {counts}, expected {steps} (batch, shard) steps")
+    print(f"11a --kmv --khf --hmh on [{dev}, {dev}]: {READS / seconds:.0f} reads/s "
+          f"(phase 5, one device, same card: {READS / t5:.0f} reads/s); out.json "
+          f"byte-identical to phase 5's; {steps} (batch, shard) steps, each entry once a "
+          f"step", flush=True)
+
+    # 11b: -k 31, the two-sort step in each shard
+    steps = shard_steps(fq, 2048, 2)
+    seconds, counts, got = sharded_run("11b", [fq], tmp, two, kmer_size=31)
+    path_launches["11b"] = counts
+    if got != want_b:
+        raise SystemExit("FAIL 11b: the sharded -k 31 out.json differs from phase 6's")
+    if (counts["minimizer_window_packed"] != steps or counts["bin_scatter_values"] != steps
+            or sum(counts.values()) != 2 * steps):
+        raise SystemExit(f"FAIL 11b: launches {counts}, expected {steps} (batch, shard) steps")
+    print(f"11b -k 31 on [{dev}, {dev}]: {READS / seconds:.0f} reads/s; out.json "
+          f"byte-identical to phase 6's; {steps} (batch, shard) steps", flush=True)
+
+    # 11c: the device flush with the tables striped over the two entries
+    src2 = ",".join(files[:2])
+    t_host, _ = sketch_cli(src2, os.path.join(tmp, "11c_host"), "cuda",
+                           os.path.join(tmp, "11c_host.log"), ("-i", str(READS)))
+    with open(os.path.join(tmp, "11c_host.json"), "rb") as fh:
+        want_c = fh.read()
+    reset_flush_stats()
+    seconds, counts, got = sharded_run("11c", files[:2], tmp, two, interval=READS,
+                                       device_flush=True)
+    path_launches["11c"] = counts
+    stats = dict(pipeline.flush_stats)
+    if got != want_c:
+        raise SystemExit("FAIL 11c: the striped device flush's out.json differs from the "
+                         "one-device host flush's")
+    if stats["margin_fallbacks"] or stats["device_flushes"] != 2:
+        raise SystemExit(f"FAIL 11c: {stats['device_flushes']} device flushes, "
+                         f"{stats['margin_fallbacks']} margin fallbacks")
+    hist = fq_histogram(fq, dev)
+    hs = HistoSketch(21, 42, NBINS, 1.0, tables=get_cws_tables(42, NBINS))
+    one = pipeline._DeviceFlusher(hs, NBINS, [dev])
+    striped = pipeline._DeviceFlusher(hs, NBINS, two)
+    a = mesh.striped_flush_candidates(hist, one.row_bins, one.cms, one.stripes)
+    b = mesh.striped_flush_candidates(hist, striped.row_bins, striped.cms, striped.stripes)
+    for x, y, name in zip(a, b, ("cms_out", "bins", "esti", "live", "margin")):
+        if not torch.equal(x, y):
+            raise SystemExit(f"FAIL 11c: the striped candidate stage's {name} differs from "
+                             f"the one-device stage's")
+    stage_ms = profiled_device_ms(lambda: mesh.striped_flush_candidates(
+        hist, striped.row_bins, striped.cms, striped.stripes),
+        tag="striped candidate stage, 2 stripes")
+    depth, width = striped.cms.shape
+    b11 = flush_stage_bound(depth, width)
+    print(f"11c --deviceFlush -i {READS} over files 0-1 on [{dev}, {dev}]: "
+          f"{2 * READS / seconds:.0f} reads/s (one-device host flush {2 * READS / t_host:.0f}); "
+          f"out.json byte-identical; {stats['device_flushes']} device flushes, 0 margin "
+          f"fallbacks; the striped stage bit-equal to the one-device stage on 1M reads' "
+          f"histogram, {stage_ms:.4f} ms device time (bound {b11[0]:.4f} ms by {b11[1]})",
+          flush=True)
+    stage = dict(name="striped_flush_candidates", source="hulk_tpu_torch/parallel/mesh.py",
+                 counterpart="hulk_tpu/parallel/mesh.py:330", ms=stage_ms, bound_ms=b11[0],
+                 bound_by=b11[1], launches=stats["device_flushes"],
+                 shape=f"nbins={NBINS} s=42 depth={depth} width={width}, 2 stripes")
+    del hist, one, striped, a, b
+
+    # 11d: two ranks share the card over files 0-3, against one process
+    src4 = ",".join(files[:4])
+    flags = ["sketch", "-f", src4, "-k", "21", "-s", "42", "--kmv", "--khf", "--hmh",
+             "--device", dev.type]
+    logs = [os.path.join(tmp, f"11d.rank{r}.log") for r in range(2)]
+    wall2 = run_ranks(lambda r: ["-m", "hulk_tpu_torch", *flags, "-o",
+                                 os.path.join(tmp, "11d_ranks"), "--log", logs[r]],
+                      2, "11d", tmp)
+    wall1 = run_ranks(lambda r: ["-m", "hulk_tpu_torch", *flags, "-o",
+                                 os.path.join(tmp, "11d_one"), "--log",
+                                 os.path.join(tmp, "11d_one.log")], 1, "11d_one", tmp)
+    with open(os.path.join(tmp, "11d_ranks.json"), "rb") as x, \
+            open(os.path.join(tmp, "11d_one.json"), "rb") as y:
+        if x.read() != y.read():
+            raise SystemExit("FAIL 11d: the two ranks' out.json differs from one process's")
+    texts = []
+    for log in logs:
+        with open(log) as fh:
+            texts.append(fh.read())
+    if ("written sketch to disk" not in texts[0] or "written sketch to disk" in texts[1]
+            or "output written by process 0" not in texts[1]):
+        raise SystemExit("FAIL 11d: rank 0 alone must write out.json")
+    for r in range(2):
+        if f"process {r}/2 takes 2 of 4 files" not in texts[r]:
+            raise SystemExit(f"FAIL 11d: rank {r} did not take two of the four files")
+    print(f"11d sketch --kmv --khf --hmh over files 0-3 ({4 * READS} reads): two ranks "
+          f"sharing the card {wall2:.3f} s wall, one process {wall1:.3f} s wall (start-up "
+          f"included); rank 0's out.json byte-identical to one process's, rank 1 wrote "
+          f"nothing", flush=True)
+
+    # 11e: sharded_histogram_step against the fused step on one batch
+    R, L = 16384, 160
+    codes, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(SEED), R, L, 120, L)
+    on = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    wmin, report = minimizer_window_packed(on(codes2), on(mask8), on(lengths), 21, 9)
+    skeys, want_count, _ = sorted_batch_keys(wmin, report, k=21, w=9,
+                                             bucket=stream_bucket(R, R * L, l=L, k=21, w=9))
+    want_hist = torch.zeros(NBINS, dtype=torch.int32, device=dev)
+    bin_scatter_keys(want_hist, skeys, 50)
+    reset_launches()
+    hist, count = mesh.sharded_histogram_step(two, NBINS, 21, 9)(codes, lengths)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    path_launches["11e"] = counts
+    if not torch.equal(hist, want_hist) or int(count) != int(want_count):
+        raise SystemExit("FAIL 11e: sharded_histogram_step differs from the fused step")
+    if counts["jump_hash"] != 2 or counts["minimizer_window"] != 2:
+        raise SystemExit(f"FAIL 11e: launches {counts}, expected the u8 minimizer and "
+                         f"hulk_jump_hash once a shard")
+    print(f"11e sharded_histogram_step on [{dev}, {dev}], one [{R}, {L}] batch: histogram "
+          f"and count ({int(count)}) equal to the fused step's; launches {counts}", flush=True)
+    return [stage]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hulk_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1415,6 +1644,7 @@ def main() -> int:
     from hulk_tpu_torch import native
     from hulk_tpu_torch.hashes.cws import get_cws_tables
     from hulk_tpu_torch.ops import _build
+    from hulk_tpu_torch.stream.watchdog import DEADLINE_S, probe_device_roundtrip
     from hulk_tpu_torch.synth import contig_lengths, generate, generate_fasta
 
     t_start = time.perf_counter()
@@ -1442,6 +1672,11 @@ def main() -> int:
             if not native.available():
                 raise SystemExit("FAIL native host runtime did not build")
             print(f"build native (g++): {time.perf_counter() - t0:.2f} s", flush=True)
+            ok, dt = probe_device_roundtrip(DEADLINE_S, device=dev)
+            if not ok:
+                raise SystemExit(f"FAIL watchdog probe: no answer from {dev} in "
+                                 f"{DEADLINE_S:.0f} s")
+            print(f"watchdog probe (16 elements to {dev} and back): {dt:.4f} s", flush=True)
 
         with phase("2 kernels"):
             rows = kernel_phase(np.random.default_rng(SEED), dev)
@@ -1476,6 +1711,7 @@ def main() -> int:
         with phase("5 sketches (a)"):
             flags = ("--kmv", "--khf", "--hmh")
             seconds, n_min, counts = drive("sketches", fq, tmp, flags)
+            t5 = seconds
             path_launches["5"] = counts
             check_sketch(os.path.join(tmp, "sketches.json"), 42,
                          algos=("histosketch", "kmv", "khf", "hyperminhash"))
@@ -1534,13 +1770,16 @@ def main() -> int:
             long_read_split(sub)
 
         with phase("8 intervals (d)"):
-            stages = interval_phase(fq, small, tmp, path_launches)
+            stages, files = interval_phase(fq, small, tmp, path_launches)
 
         with phase("9 smash (e)"):
             stages += smash_phase(tmp)
 
         with phase("10 LSH (f)"):
             stages += lsh_phase(tmp, dev)
+
+        with phase("11 sharded sketch (g)"):
+            stages += sharded_phase(fq, files, tmp, dev, path_launches, t5)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -24,7 +24,9 @@ environment, for example two on one machine:
 
 Each process runs on the devices it sees (CUDA_VISIBLE_DEVICES gives each
 its own cards; add --device cpu for the plain versions) and process 0 alone
-writes. `sketch` runs in one process only, for now.
+writes. `sketch` over several processes gives each process every N-th file
+and merges their states exactly before the one flush; within a process,
+`sketch --device cuda:0,cuda:1` shards the reads over the cards listed.
 """
 from __future__ import annotations
 
@@ -74,7 +76,7 @@ def _add_global_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log", dest="log_file", type=str, default="", help="filename for log file")
     p.add_argument("-p", "--processors", type=int, default=1, help="number of processors to use")
     p.add_argument("--profiling", action="store_true", help="write a torch.profiler trace under ./hulk-profile")
-    p.add_argument("--device", type=str, default="cuda", help="PyTorch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--device", type=str, default="cuda", help="PyTorch device to run on: cuda or cuda:N (one card), cpu, or (sketch) a comma-separated list of devices to shard the reads over")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -175,12 +177,7 @@ def run_sketch(args) -> None:
     log.info("checking parameters...")
 
     fastq = _split_fastq_args(args.fastq)
-    if dist.world_size() > 1:
-        # hulk_tpu shards the files over the processes and merges their
-        # states exactly; until the port does, every process would sketch
-        # every file and write the same out.json
-        _error_check(f"sketch over several processes is not ported yet: run one process "
-                     f"({dist.world_size()} were started; unset HULK_COORDINATOR)")
+    devices = [d for d in args.device.split(",") if d]
 
     # sketchParamCheck (cmd/sketch.go:185-214)
     out_dir = os.path.dirname(args.outFile)
@@ -235,17 +232,41 @@ def run_sketch(args) -> None:
         hmh=args.hmh,
         banner_label=args.bannerLabel,
         file_name=(",".join(fastq) + ",") if fastq else "STDIN",
-        device=args.device,
+        device=devices[0],
+        devices=devices if len(devices) > 1 else None,
         device_flush=args.device_flush,
         checkpoint_path=args.checkpoint or None,
         resume_from=args.resume or None,
         interval_secondary=args.stream_all,
     )
+
+    # several processes: each takes a static shard of the files; the
+    # pipeline merges the partial states exactly and process 0 writes
+    multi_process = dist.world_size() > 1
+    if multi_process:
+        if not fastq:
+            _error_check("multi-host runs require file inputs (no STDIN)")
+        all_files = fastq
+        fastq = dist.process_read_shard(fastq)
+        cfg.file_name = ",".join(all_files) + ","
+        log.info("\tmulti-host: process %d/%d takes %d of %d files",
+                 dist.rank(), dist.world_size(), len(fastq), len(all_files))
+
+    # backend-stall watchdog (stream/watchdog.py): probe the card before
+    # consuming input; a hung context fails the run instead of hanging it
+    from hulk_tpu_torch.stream.watchdog import guard_backend
+
+    guard_backend(log, device=devices[0])
+
     log.info("initialising sketching pipeline...")
     log.info("finding minimizers...")
     if fastq and native.available():
         cfg.input_paths = fastq
         reads = None
+    elif not fastq and multi_process:
+        # more processes than files: this process's shard is empty, but it
+        # still takes part in the final merge, and must not read STDIN
+        reads = iter(())
     else:
         reads = stream_reads(fastq, fasta=args.fasta, stdin=None if fastq else sys.stdin.buffer)
 
@@ -273,6 +294,9 @@ def run_sketch(args) -> None:
     log.info("\tfound %d minimizers", result.minimizer_count)
     log.info("\thistosketching across %d bins", spectrum_size)
     log.info("cleaning up...")
+    if dist.rank() != 0:
+        log.info("finished in %.6fs (output written by process 0)", time.time() - start)
+        return
     result.hulk_data.write_json(args.outFile + ".json")
     log.info("\twritten sketch to disk: %s", args.outFile + ".json")
     if args.stream:

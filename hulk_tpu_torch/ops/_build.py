@@ -28,6 +28,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _entries: dict[str, object] = {}
 # what this process's build did: its seconds and ptxas's register/spill
@@ -103,6 +104,13 @@ def entry(name: str, argtypes: list):
         fn.argtypes = argtypes
         _entries[name] = fn
     return fn
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """launches[name] += 1, under a lock: the sharded stream launches from
+    one thread per device."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def check_launch(err: int, what: str) -> None:

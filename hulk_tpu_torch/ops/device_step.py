@@ -84,6 +84,20 @@ def group_views2(flatbuf: torch.Tensor, g: int, r: int, l: int):
     return codes2, mask8, lengths
 
 
+def ship_group(staged: list, l: int, rmax: int, device: torch.device):
+    """Pack staged (codes, lengths) batches into one pinned v2 buffer and
+    start its copy to the device. The group's row count r is its largest
+    batch's, rounded up to 64, at most rmax. Returns (flat, g, r)."""
+    from hulk_tpu_torch import native
+
+    g = len(staged)
+    r = min(rmax, -(-max(c.shape[0] for c, _ in staged) // 64) * 64)
+    host = torch.empty(native.group2_nbytes(g, r, l), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    native.pack_group2(staged, g, r, l, out=host.numpy())
+    return host.to(device, non_blocking=True), g, r
+
+
 def bin_scatter_keys_torch(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:
     """Plain version: bin a slice of sorted (read_id << vbits | value) keys,
     dedup adjacent, and scatter-add into the int32 histogram in place."""

@@ -75,7 +75,7 @@ def jump_hash_cuda(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(keys.data_ptr(), keys.numel(), num_buckets, out.data_ptr(), stream)
     _build.check_launch(err, "jump_hash")
-    launches["jump_hash"] += 1
+    _build.count_launch(launches, "jump_hash")
     return out
 
 
@@ -94,7 +94,7 @@ def bin_scatter_keys_cuda(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -
         err = fn(skeys.data_ptr(), skeys.numel(), vbits, hist.data_ptr(),
                  hist.shape[0], stream)
     _build.check_launch(err, "bin_scatter_keys")
-    launches["bin_scatter_keys"] += 1
+    _build.count_launch(launches, "bin_scatter_keys")
 
 
 def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor) -> None:
@@ -110,4 +110,4 @@ def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(svals.data_ptr(), svals.numel(), hist.data_ptr(), hist.shape[0], stream)
     _build.check_launch(err, "bin_scatter_values")
-    launches["bin_scatter_values"] += 1
+    _build.count_launch(launches, "bin_scatter_values")

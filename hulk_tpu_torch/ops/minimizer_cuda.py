@@ -75,7 +75,7 @@ def minimizer_window_cuda(codes: torch.Tensor, lengths: torch.Tensor, k: int,
         err = fn(codes.data_ptr(), lengths.data_ptr(), R, L, k, w, int(cont),
                  wmin.data_ptr(), report.data_ptr(), stream)
     _build.check_launch(err, name)
-    launches[name] += 1
+    _build.count_launch(launches, name)
     return wmin, report
 
 
@@ -101,5 +101,5 @@ def minimizer_window_packed_cuda(codes2: torch.Tensor, mask8: torch.Tensor,
         err = fn(codes2.data_ptr(), mask8.data_ptr(), lengths.data_ptr(), R, L, k, w,
                  wmin.data_ptr(), report.data_ptr(), stream)
     _build.check_launch(err, "minimizer_window_packed")
-    launches["minimizer_window_packed"] += 1
+    _build.count_launch(launches, "minimizer_window_packed")
     return wmin, report

@@ -1,14 +1,25 @@
-"""The device stage of the no-drift histosketch flush (--deviceFlush), and
-the dp "mesh" of the devices a process ranks on.
+"""The devices a process runs on, as a dp and mp "mesh": the per-shard group
+step of the data-parallel stream, the CWS tables striped over sketch slots,
+the no-drift flush's candidate stage (--deviceFlush) on one device or
+striped, and the sharded histogram step.
 
-Counterpart of hulk_tpu/parallel/mesh.py (FLUSH_MARGIN_REL, FLUSH_TOP_T,
-the function that make_device_flush_candidates builds, and
-make_sketch_mesh's dp axis): plain PyTorch, no hand-written kernel. A mesh
-here is a list of torch.devices, each given a contiguous stripe of rows.
-The other multi-device pieces of that module (the dp stream step, the mp
-sharding of the CWS tables) are not here yet.
+Counterpart of hulk_tpu/parallel/mesh.py (make_sketch_mesh,
+make_sharded_group_step, sharded_histogram_step,
+make_device_flush_candidates over the mp axis, shard_tables,
+FLUSH_MARGIN_REL, FLUSH_TOP_T). A mesh here is a list of torch.devices,
+which may name one device more than once: that is how the CPU tests and a
+machine with one card run the sharded paths. Rows (dp) and slots (mp) go to
+the devices in contiguous stripes of ceil(n / D); the stream's shards step
+in threads of their own. The kernels run through
+their wrappers, which launch on the device of their tensors; every other
+stage is plain PyTorch, as hulk_tpu left it to XLA. The shards merge
+exactly (integer sums, bottom-s unions, minima and maxima), so the output
+does not depend on the number of devices. hulk_tpu's sharded_flush_step
+(the mp flush with its drift scan) is not here.
 """
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -38,27 +49,87 @@ def make_sketch_mesh(n_dp: int | None = None, devices=None) -> list:
     return devices
 
 
-def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH_TOP_T):
-    """One no-drift flush of a dense histogram, device stage.
+def stripes(n: int, d: int) -> list[tuple[int, int]]:
+    """[lo, hi) of d contiguous stripes of ceil(n / d) over n items (the
+    last ones shorter or empty): hulk_tpu's P("dp") row blocks
+    (stream/pipeline.py:536-538)."""
+    step = -(-n // d)
+    return [(min(i * step, n), min(i * step + step, n)) for i in range(d)]
 
-    (hist [nbins] int32, row_bins [depth, nbins] int64, cms [depth, width]
-    f64, c/b/exp_r [s, nbins] f64) -> (cms_out [depth, width] f64,
-    cand_bins [s, T] int64, cand_esti [s, T] f64, cand_live [s, T] bool,
-    margin [s] int32).
 
-    The CMS update and each live bin's frequency estimate are exact: in
-    every row the estimate of a bin is the counter before the flush plus the
+def sharded_group_step(hists: list, counts: list, states: list, shards: list, *,
+                       l: int, k: int, w: int) -> None:
+    """The data-parallel group step (make_sharded_group_step). shards[i] is
+    shard i's staged (codes, lengths) blocks and its row cap, or None where
+    the shard got no rows. Each shard packs its blocks into its own pinned
+    v2 buffer, copies it to the device of hists[i] and runs the one-device
+    group_scan_body into its own carries hists[i], counts[i], states[i], in
+    place. The shards run in threads of their own, which share no state, so
+    that one device's host syncs (one a batch) do not hold up another's
+    launches. No collectives: the shards merge at the end or at an interval
+    boundary."""
+    from hulk_tpu_torch.ops.device_step import group_scan_body, ship_group, stream_bucket
+
+    def step(i: int) -> None:
+        blocks, rmax = shards[i]
+        flat, g, r = ship_group(blocks, l, rmax, hists[i].device)
+        group_scan_body(hists[i], counts[i], flat, g=g, r=r, l=l, k=k, w=w,
+                        bucket=stream_bucket(r, r * l, l=l, k=k, w=w), states=states[i])
+
+    live = [i for i, shard in enumerate(shards) if shard is not None]
+    with ThreadPoolExecutor(len(live), thread_name_prefix="hulk-shard") as pool:
+        for f in [pool.submit(step, i) for i in live]:
+            f.result()
+
+
+def sharded_histogram_step(devices: list, nbins: int, k: int, w: int):
+    """(codes [R, L] uint8, lengths [R] int32) -> (hist [nbins] int32,
+    count [] int64) on devices[0]: each device's stripe of rows through the
+    minimizer kernel and the jump kernel (hulk_jump_hash), the bins of every
+    reported window minimum added into its own histogram, then the shards
+    summed (hulk_tpu's psum over dp). Like hulk_tpu's, it keeps a value
+    that a read reports twice, where the stream step counts it once, so the
+    two agree only on batches where no read does. The plain versions run
+    on the CPU."""
+    from hulk_tpu_torch.hashes.jumphash import jump_hash
+    from hulk_tpu_torch.ops.minimizer import minimizer_scan
+
+    def step(codes, lengths):
+        codes, lengths = torch.as_tensor(codes), torch.as_tensor(lengths)
+        hist = torch.zeros(nbins, dtype=torch.int32, device=devices[0])
+        count = torch.zeros((), dtype=torch.int64, device=devices[0])
+        for dev, (lo, hi) in zip(devices, stripes(lengths.shape[0], len(devices))):
+            if lo == hi:
+                continue
+            vals, mask = minimizer_scan(codes[lo:hi].to(dev), lengths[lo:hi].to(dev), k, w)
+            bins = jump_hash(vals.reshape(-1), nbins)
+            local = torch.zeros(nbins, dtype=torch.int32, device=dev)
+            local.index_add_(0, bins.to(torch.int64), mask.reshape(-1).to(torch.int32))
+            hist += local.to(devices[0])
+            count += mask.sum().to(devices[0])
+        return hist, count
+
+    return step
+
+
+def shard_tables(devices: list, tables) -> list[tuple]:
+    """The CWS tables c, b and exp_r ([s, nbins] f64) as contiguous slot
+    stripes, one (c, b, exp_r) per device, on that device (hulk_tpu's
+    P("mp", None) placement)."""
+    s = tables.c.shape[0]
+    # torch.tensor copies: the tables are read-only memory maps
+    return [tuple(torch.tensor(t[lo:hi], device=dev) for t in (tables.c, tables.b, tables.exp_r))
+            for dev, (lo, hi) in zip(devices, stripes(s, len(devices)))]
+
+
+def _estimates(hist, row_bins, cms):
+    """The CMS update and each bin's frequency estimate, exact: in every
+    row the estimate of a bin is the counter before the flush plus the
     counts of the bins that share its counter up to and including it
     (ascending bin order, the host scan's), all integer-valued f64 sums
-    below 2^53, so any summation order gives the same bits. Only
-    Aka = c / (exp(log(esti) - b) * exp_r) uses the device's exp/log; the
-    host stage (HistoSketch.apply_flush_candidates) recomputes the T
-    candidates of each slot with the Go ports and keeps the reference's
-    selection. That is exact whenever margin <= T: the margin's elements
-    are then the T smallest whatever topk's order among ties.
-    """
+    below 2^53, so any summation order gives the same bits. Returns
+    (cms_out, esti, live)."""
     freqs = hist.double()
-    live = freqs != 0.0
     estis, rows = [], []
     for d in range(row_bins.shape[0]):
         keys = row_bins[d]
@@ -74,9 +145,13 @@ def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH
         # f64 atomics add in any order: exact, since every summand and sum
         # is an integer below 2^53
         rows.append(cms[d].index_add(0, keys, freqs))
-    esti = torch.stack(estis).amin(0)
-    cms_out = torch.stack(rows)
+    return torch.stack(rows), torch.stack(estis).amin(0), freqs != 0.0
 
+
+def _slot_candidates(esti, live, c, b, exp_r, top_t: int):
+    """One stripe of slots: the top_t smallest Aka of each slot (indices)
+    and its margin count. Every slot's row depends on that slot's tables
+    alone, so a stripe gives the rows the whole table gives."""
     lf = torch.log(torch.where(live, esti, 1.0))
     aka = c / (torch.exp(lf[None, :] - b) * exp_r)
     aka = torch.where(live[None, :], aka, float("inf"))
@@ -84,5 +159,43 @@ def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH
     best = top[:, 0]
     # sign-safe: best + |best| * rel, plus a tiny term for best == 0
     thresh = best + best.abs() * FLUSH_MARGIN_REL + 1e-300
-    margin = (aka <= thresh[:, None]).sum(1, dtype=torch.int32)
-    return cms_out, idx, esti[idx], live[idx], margin
+    return idx, (aka <= thresh[:, None]).sum(1, dtype=torch.int32)
+
+
+def striped_flush_candidates(hist, row_bins, cms, table_stripes: list,
+                             top_t: int = FLUSH_TOP_T):
+    """The candidate stage with the tables striped over devices
+    (make_device_flush_candidates over mp). The CMS prefix sums and the
+    estimates are computed once, on the device of hist; each stripe's
+    device takes its slots' Aka, top-T and margin count; the outputs are
+    concatenated in slot order on hist's device. Returns what
+    device_flush_candidates returns, bit for bit, for any stripes."""
+    cms_out, esti, live = _estimates(hist, row_bins, cms)
+    idx, margin = [], []
+    for c, b, exp_r in table_stripes:
+        if c.shape[0] == 0:
+            continue
+        i, m = _slot_candidates(esti.to(c.device), live.to(c.device), c, b, exp_r, top_t)
+        idx.append(i.to(esti.device))
+        margin.append(m.to(esti.device))
+    idx = torch.cat(idx)
+    return cms_out, idx, esti[idx], live[idx], torch.cat(margin)
+
+
+def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH_TOP_T):
+    """One no-drift flush of a dense histogram, device stage, on one device.
+
+    (hist [nbins] int32, row_bins [depth, nbins] int64, cms [depth, width]
+    f64, c/b/exp_r [s, nbins] f64) -> (cms_out [depth, width] f64,
+    cand_bins [s, T] int64, cand_esti [s, T] f64, cand_live [s, T] bool,
+    margin [s] int32).
+
+    The CMS update and each live bin's frequency estimate are exact
+    (_estimates). Only Aka = c / (exp(log(esti) - b) * exp_r) uses the
+    device's exp/log; the host stage (HistoSketch.apply_flush_candidates)
+    recomputes the T candidates of each slot with the Go ports and keeps
+    the reference's selection. That is exact whenever margin <= T: the
+    margin's elements are then the T smallest whatever topk's order among
+    ties.
+    """
+    return striped_flush_candidates(hist, row_bins, cms, [(c, b, exp_r)], top_t)

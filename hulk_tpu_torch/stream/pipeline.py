@@ -1,8 +1,9 @@
 """The sketch pipeline: reads -> minimizers -> spectrum -> histosketch.
 
-Counterpart of hulk_tpu/stream/pipeline.py (SketchConfig, the single-device
-_DeviceStream, the checkpoint format, _DeviceFlusher and
-run_sketch_pipeline) on one PyTorch device. The native parser feeds
+Counterpart of hulk_tpu/stream/pipeline.py (SketchConfig, _DeviceStream,
+the data-parallel _ShardedDeviceStream, the checkpoint format,
+_DeviceFlusher and run_sketch_pipeline) on a list of PyTorch devices. The
+native parser feeds
 fixed-shape batches of FASTQ reads or FASTA records; groups of GROUP batches
 are packed into one pinned host buffer (native pack_group2), copied to the
 device once, and stepped batch by batch (ops/device_step.py) into an int32
@@ -21,6 +22,18 @@ most one flush is in flight. After it, the --stream callback gets a
 snapshot and, with checkpoint_path, the state goes to disk in hulk_tpu's
 checkpoint format, so that a run checkpointed by either package resumes in
 the other.
+
+Given more than one device (SketchConfig.devices) the stream shards each
+batch's rows over them (_ShardedDeviceStream, each device with its own
+carries, stepped in a thread of its own) and the device flush stripes the
+CWS tables over them (parallel/mesh.py). hulk_tpu's
+per-batch _dispatch_legacy is not ported: it serves hosts without the
+native library and k too large for the fused step, and the port needs the
+native library while group_scan_body takes the two-sort step at k >= 23.
+With more than one process (parallel/distributed.py) each process
+sketches its own files and the partial states merge exactly at the end
+(integer histogram sums, bottom-s union, minima, maxima) before the one
+flush, which every process runs alike.
 """
 from __future__ import annotations
 
@@ -40,10 +53,13 @@ from hulk_tpu_torch.ops.device_sketches import SketchStates
 from hulk_tpu_torch.ops.device_step import (
     fused_bits_ok,
     group_scan_body,
+    ship_group,
     stream_bucket,
 )
 from hulk_tpu_torch.ops.longread import long_read_minimizers
 from hulk_tpu_torch.ops.minimizer import short_read_mask
+from hulk_tpu_torch.parallel import distributed as dist
+from hulk_tpu_torch.parallel import mesh
 from hulk_tpu_torch.sketch.histosketch import HistoSketch
 from hulk_tpu_torch.sketch.hyperminhash import HyperMinHash
 from hulk_tpu_torch.sketch.minhash import KHFSketch, KMVSketch
@@ -94,6 +110,15 @@ class SketchConfig:
     # interval snapshots (on_interval) also carry KMV/KHF/HMH, at the cost
     # of one device-state readback an interval (--streamAll)
     interval_secondary: bool = False
+    # the devices to shard the stream over (make_sketch_mesh(devices=...));
+    # may name one more than once. None: [device]. Several cards in one
+    # process measured slower than one (PERF.md), so none is the default.
+    devices: list | None = None
+
+    def resolved_devices(self) -> list:
+        if self.devices is not None:
+            return mesh.make_sketch_mesh(devices=self.devices)
+        return [torch.device(self.device)]
 
     def resolved_spectrum_size(self) -> int:
         return self.spectrum_size if self.spectrum_size else self.kmer_size ** 4
@@ -135,9 +160,9 @@ class _DeviceStream:
 
     GROUP = 16
 
-    def __init__(self, cfg: SketchConfig, nbins: int):
+    def __init__(self, cfg: SketchConfig, nbins: int, device: torch.device):
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
+        self.device = device
         self.R = cfg.resolved_batch_size()
         self.nbins = nbins
         self.hist = torch.zeros(nbins, dtype=torch.int32, device=self.device)
@@ -150,11 +175,16 @@ class _DeviceStream:
         self._staged: list = []
         self._staged_l = None
 
+    def _rows(self, l: int) -> int:
+        """The rows of one step at length l: R, fewer where R x L would pass
+        MAX_BATCH_POSITIONS."""
+        return max(1, min(self.R, MAX_BATCH_POSITIONS // l))
+
     def feed(self, batch) -> None:
         """Stage one batch (parser RawReads or padded PackedReads), split by
         rows so that R x L stays within MAX_BATCH_POSITIONS."""
         l = batch.bucket if hasattr(batch, "bucket") else batch.codes.shape[1]
-        rows = max(1, min(self.R, MAX_BATCH_POSITIONS // l))
+        rows = self._rows(l)
         if self._staged and self._staged_l != l:
             self._flush_staged()
         self._staged_l = l
@@ -166,18 +196,13 @@ class _DeviceStream:
                 self._flush_staged()
 
     def _flush_staged(self) -> None:
-        from hulk_tpu_torch import native
-
         if not self._staged:
             return
         staged, self._staged = self._staged, []
-        cfg, l, g = self.cfg, self._staged_l, len(staged)
-        r = min(self.R, -(-max(c.shape[0] for c, _ in staged) // 64) * 64)
-        host = torch.empty(native.group2_nbytes(g, r, l), dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
-        native.pack_group2(staged, g, r, l, out=host.numpy())
+        cfg, l = self.cfg, self._staged_l
+        flat, g, r = ship_group(staged, l, self.R, self.device)
         group_scan_body(
-            self.hist, self.count, host.to(self.device, non_blocking=True),
+            self.hist, self.count, flat,
             g=g, r=r, l=l, k=cfg.kmer_size, w=cfg.window_size,
             bucket=stream_bucket(r, r * l, l=l, k=cfg.kmer_size,
                                  w=cfg.window_size),
@@ -209,16 +234,89 @@ class _DeviceStream:
         elementwise minimum, register maximum: each sketch's exact merge, so
         the host's own long-read values and a resumed state survive)."""
         self._flush_staged()
-        st = self.states
-        u64 = lambda t: t.cpu().numpy().view(np.uint64)  # noqa: E731
-        if kmv is not None:
-            vals = u64(st.kmv)
-            vals = vals[vals != np.uint64(0xFFFFFFFFFFFFFFFF)]
-            kmv._values = np.sort(np.concatenate([kmv._values, vals]))[: self.cfg.sketch_size]
-        if khf is not None:
-            khf.sketch = np.minimum(khf.sketch, u64(st.khf))
-        if hmh is not None:
-            hmh.registers = np.maximum(hmh.registers, u64(st.hmh))
+        _merge_states(self.states, kmv, khf, hmh, self.cfg.sketch_size)
+
+
+def _merge_states(st: SketchStates | None, kmv, khf, hmh, s: int) -> None:
+    """Merge device sketch states into the host objects: bottom-s union of
+    the multisets, elementwise minimum, register maximum. Each is the
+    sketch's exact merge, so merging shard after shard gives the merge of
+    all, and the host's own long-read values and a resumed state survive."""
+    u64 = lambda t: t.cpu().numpy().view(np.uint64)  # noqa: E731
+    if kmv is not None:
+        vals = u64(st.kmv)
+        vals = vals[vals != np.uint64(0xFFFFFFFFFFFFFFFF)]
+        kmv._values = np.sort(np.concatenate([kmv._values, vals]))[:s]
+    if khf is not None:
+        khf.sketch = np.minimum(khf.sketch, u64(st.khf))
+    if hmh is not None:
+        hmh.registers = np.maximum(hmh.registers, u64(st.hmh))
+
+
+class _ShardedDeviceStream(_DeviceStream):
+    """The data-parallel stream (hulk_tpu's _ShardedDeviceStream,
+    pipeline.py:448-713): each device owns an int32 histogram, an int64
+    minimizer count and the sketch states, and steps its own rows with no
+    collectives. Each staged batch (already split by rows, as on one
+    device) goes to the devices in contiguous blocks of ceil(rows / D)
+    rows; each device packs its blocks into its own pinned v2 buffer and
+    copies it over. A device that got no rows of a batch steps nothing for
+    it. The shards merge exactly where the one-device stream hands its
+    state over (take_hist, drain_into, collect, minimizer_total), so the
+    rest of the pipeline does not change. The shards step one after
+    another in the streaming thread (one host sync a batch each)."""
+
+    def __init__(self, cfg: SketchConfig, nbins: int, devices: list):
+        super().__init__(cfg, nbins, devices[0])
+        self.devices = devices
+        self.hists = [self.hist] + [torch.zeros(nbins, dtype=torch.int32, device=d)
+                                    for d in devices[1:]]
+        self.counts = [self.count] + [torch.zeros((), dtype=torch.int64, device=d)
+                                      for d in devices[1:]]
+        self.shard_states = [self.states] + [
+            SketchStates.empty(cfg.sketch_size, kmv=cfg.kmv, khf=cfg.khf, hmh=cfg.hmh,
+                               device=d) if self.states is not None else None
+            for d in devices[1:]]
+
+    def _flush_staged(self) -> None:
+        if not self._staged:
+            return
+        staged, self._staged = self._staged, []
+        cfg, l = self.cfg, self._staged_l
+        shards = []
+        for lo, hi in mesh.stripes(self._rows(l), len(self.devices)):
+            mine = [(c[lo:hi], n[lo:hi]) for c, n in staged if min(hi, n.shape[0]) > lo]
+            shards.append((mine, hi - lo) if mine else None)
+        mesh.sharded_group_step(self.hists, self.counts, self.shard_states, shards,
+                                l=l, k=cfg.kmer_size, w=cfg.window_size)
+
+    def minimizer_total(self) -> int:
+        self._flush_staged()
+        return sum(int(c) for c in self.counts)
+
+    def _sum_hists(self) -> torch.Tensor:
+        """The shards' histograms summed in int64 on devices[0] (hulk_tpu's
+        _sum_shards), and each reset."""
+        total = torch.zeros(self.nbins, dtype=torch.int64, device=self.device)
+        for h in self.hists:
+            total += h.to(self.device)
+            h.zero_()
+        return total
+
+    def take_hist(self) -> torch.Tensor:
+        self._flush_staged()
+        return self._sum_hists()
+
+    def drain_into(self, spectrum: KmerSpectrum) -> None:
+        self._flush_staged()
+        h = self._sum_hists().cpu().numpy().astype(np.float64)
+        if h.any():
+            spectrum.add_dense(h)
+
+    def collect(self, kmv, khf, hmh) -> None:
+        self._flush_staged()
+        for st in self.shard_states:
+            _merge_states(st, kmv, khf, hmh, self.cfg.sketch_size)
 
 
 def _save_checkpoint(path, *, seq_count, length_total, minimizer_count, hs,
@@ -314,13 +412,14 @@ class _DeviceFlusher:
     (HistoSketch.apply_flush_candidates): bit-identical to the host flush,
     with a full host flush in the rare case that the margin count exceeds T.
 
-    The CMS stays on the device between flushes; the CWS tables go to the
-    device once. hs.sketch and hs.sketch_weights stay on the host and are
-    updated after every flush; hs.cms.sketch is brought up to date on
-    demand (checkpoints, end of run)."""
+    The CMS stays on devices[0] between flushes; the CWS tables go to the
+    devices once, striped over them by slots (mesh.shard_tables), and each
+    device ranks its own slots (mesh.striped_flush_candidates). hs.sketch
+    and hs.sketch_weights stay on the host and are updated after every
+    flush; hs.cms.sketch is brought up to date on demand (checkpoints, end
+    of run)."""
 
-    def __init__(self, hs: HistoSketch, nbins: int, device: torch.device):
-        from hulk_tpu_torch.parallel.mesh import FLUSH_TOP_T
+    def __init__(self, hs: HistoSketch, nbins: int, devices: list):
         from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
         from hulk_tpu_torch.sketch.spectrum import MIN_USED_BINS, SpectrumError
 
@@ -328,13 +427,12 @@ class _DeviceFlusher:
         self.nbins = nbins
         self._min_used = MIN_USED_BINS
         self._spectrum_error = SpectrumError
-        self.top_t = FLUSH_TOP_T
+        self.top_t = mesh.FLUSH_TOP_T
+        device = devices[0]
         depth, width = hs.cms.sketch.shape
         self.row_bins = torch.from_numpy(
             cms_row_bins_table(nbins, depth, width).astype(np.int64)).to(device)
-        # torch.tensor copies: the tables are read-only memory maps
-        self.tables = tuple(torch.tensor(t, device=device)
-                            for t in (hs.cws.c, hs.cws.b, hs.cws.exp_r))
+        self.stripes = mesh.shard_tables(devices, hs.cws)
         # owned copy (astype copies): on the CPU, .to() would share the
         # memory of hs.cms.sketch, which the fallback flush mutates in place
         self.cms = torch.from_numpy(hs.cms.sketch.astype(np.float64)).to(device)
@@ -342,16 +440,14 @@ class _DeviceFlusher:
     def flush_from(self, hist: torch.Tensor) -> None:
         """Consume a device histogram [nbins] (the reference's flush: a
         no-op when untouched, fatal below MIN_USED_BINS)."""
-        from hulk_tpu_torch.parallel import mesh
-
         used = int((hist != 0).sum())
         if used == 0:
             return
         if used / float(self.nbins) < self._min_used:
             raise self._spectrum_error("not used yet")
         flush_stats["device_flushes"] += 1
-        cms_out, cb, ce, cl, mc = mesh.device_flush_candidates(
-            hist, self.row_bins, self.cms, *self.tables, top_t=self.top_t)
+        cms_out, cb, ce, cl, mc = mesh.striped_flush_candidates(
+            hist, self.row_bins, self.cms, self.stripes, top_t=self.top_t)
         if self.hs.apply_flush_candidates(
             cb.cpu().numpy(), ce.cpu().numpy(), cl.cpu().numpy(), mc.cpu().numpy(),
             self.top_t,
@@ -374,6 +470,29 @@ class _DeviceFlusher:
         self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
 
 
+def _merge_processes(spectrum, kmv, khf, hmh, counters, s: int) -> tuple:
+    """Merge the processes' partial states, exactly, as hulk_tpu does
+    (pipeline.py:1152-1176): the spectra's integer counts and the counters
+    summed, the KMV values (padded with SENT to s) gathered and the
+    bottom s kept, KHF minima, HMH register maxima. Every process ends with
+    the same state, and so with the same flush. Returns the summed
+    counters."""
+    log.info("\tmerging %d process shards...", dist.world_size())
+    spectrum.bins = dist.allreduce_sum(spectrum.bins)
+    counters = dist.allreduce_sum(np.array(counters, dtype=np.int64))
+    if kmv is not None:
+        sent = np.uint64(0xFFFFFFFFFFFFFFFF)
+        padded = np.full(s, sent, dtype=np.uint64)
+        padded[: kmv._values.shape[0]] = kmv._values
+        vals = np.sort(dist.allgather(padded).reshape(-1))
+        kmv._values = vals[vals != sent][:s]
+    if khf is not None:
+        khf.sketch = dist.allgather(khf.sketch).min(axis=0)
+    if hmh is not None:
+        hmh.registers = dist.allgather(hmh.registers).max(axis=0)
+    return tuple(int(x) for x in counters)
+
+
 def _skip_resumed(batches, skip: int):
     """Replay resume: drop the first `skip` reads of the stream (FASTA and
     iterator input, which cannot seek)."""
@@ -391,7 +510,8 @@ def run_sketch_pipeline(
     reads: Iterator[bytes] | None, cfg: SketchConfig, on_interval=None
 ) -> SketchResult:
     """Sketch `reads` (or cfg.input_paths through the native parser when
-    reads is None) on cfg.device.
+    reads is None) on cfg.resolved_devices(); with several processes, each
+    sketches its own reads and all end with the merged result.
 
     on_interval: optional callable, called from the flush worker with a
     HULKData snapshot after every interval flush (--stream): the
@@ -402,7 +522,8 @@ def run_sketch_pipeline(
         raise PipelineError("k size must be: 0 < k < 32")
     if not 0 < w < 257:
         raise PipelineError("w must be: 0 < w < 257")
-    if torch.device(cfg.device).type == "cuda" and not torch.cuda.is_available():
+    asked = [cfg.device] if cfg.devices is None else cfg.devices
+    if any(torch.device(d).type == "cuda" for d in asked) and not torch.cuda.is_available():
         raise PipelineError(
             f"device {cfg.device!r} requested but no CUDA device is available "
             "(use --device cpu for the plain PyTorch versions)"
@@ -432,7 +553,17 @@ def run_sketch_pipeline(
     resume_base = seq_count
     next_report = (seq_count // 100_000 + 1) * 100_000
 
-    flusher = None
+    multi_process = dist.world_size() > 1
+    if multi_process and cfg.interval:
+        raise PipelineError(
+            "interval flushing requires a single process (multi-host runs "
+            "shard whole files; use interval=0)"
+        )
+    if multi_process and (cfg.checkpoint_path or cfg.resume_from):
+        raise PipelineError(
+            "checkpoint/resume requires a single process (snapshots are "
+            "per-interval, and intervals are single-process)"
+        )
     if cfg.device_flush:
         if cfg.decay_ratio != 1.0:
             raise PipelineError(
@@ -442,9 +573,17 @@ def run_sketch_pipeline(
                 "record in docs/PERF.md; the host flush handles drift "
                 "exactly at zero wall-time cost)"
             )
-    dev = _DeviceStream(cfg, nbins)
-    if cfg.device_flush:
-        flusher = _DeviceFlusher(hs, nbins, dev.device)
+        if multi_process:
+            raise PipelineError(
+                "device flush requires a single process (the reference "
+                "merges spectra before flushing once)"
+            )
+    devices = cfg.resolved_devices()
+    if len(devices) > 1:
+        dev = _ShardedDeviceStream(cfg, nbins, devices)
+    else:
+        dev = _DeviceStream(cfg, nbins, devices[0])
+    flusher = _DeviceFlusher(hs, nbins, devices) if cfg.device_flush else None
 
     def flush():
         # boss.go:112-128: flush is a no-op on an untouched spectrum;
@@ -593,6 +732,10 @@ def run_sketch_pipeline(
             dev.drain_into(spectrum)
         dev.collect(kmv, khf, hmh)
         minimizer_count += dev.minimizer_total()
+        if multi_process:
+            seq_count, length_total, minimizer_count = _merge_processes(
+                spectrum, kmv, khf, hmh, (seq_count, length_total, minimizer_count),
+                cfg.sketch_size)
         flush()
     finally:
         pool.shutdown(wait=False)

@@ -180,16 +180,3 @@ def test_smash_rank_without_files(pile, tmp_path):
                            str(tmp_path / "one.log")]) == 0
     assert ((tmp_path / "ranks.hulk-matrix.csv").read_bytes()
             == (tmp_path / "one.hulk-matrix.csv").read_bytes())
-
-
-def test_sketch_refuses_several_ranks(tmp_path):
-    """sketch over several processes is not ported: every rank fails at
-    once, says so, and writes nothing."""
-    fq = tmp_path / "r.fq"
-    fq.write_text("@r0\n" + "ACGT" * 30 + "\n+\n" + "I" * 120 + "\n")
-    ranks = run_ranks(lambda r: ["-m", "hulk_tpu_torch", "sketch", "-f", str(fq), "-o",
-                                 str(tmp_path / "out"), "--device", "cpu"], 2, tmp_path)
-    for rc, text in ranks:
-        assert rc == 1, text[-3000:]
-        assert "sketch over several processes is not ported yet" in text
-    assert not (tmp_path / "out.json").exists()

@@ -296,3 +296,45 @@ def test_sharded_sims_card_matches_cpu(n, nq):
         got, got_n = sharded_sims(devices, forest, queries)
         assert got_n == n and np.array_equal(got, want)
     assert (want[np.arange(nq), qidx] >= 40 / 42).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(kmv=True, khf=True, hmh=True, interval=7000),
+                                dict(kmer_size=31, sketch_size=8, kmv=True),
+                                dict(interval=3000, device_flush=True)])
+def test_sharded_pipeline_card_matches_cpu(kw, tmp_path, monkeypatch):
+    """The data-parallel stream on a mesh that names the card twice (and,
+    with --deviceFlush, the CWS tables striped over it): out.json bytes
+    equal one CPU device's."""
+    from hulk_tpu_torch.stream import pipeline
+    from hulk_tpu_torch.stream.pipeline import SketchConfig, run_sketch_pipeline
+    from hulk_tpu_torch.synth import generate
+
+    dev = _card()
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setitem(pipeline.flush_stats, "margin_fallbacks", 0)
+    fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=7)
+    kw = dict(dict(kmer_size=11, window_size=5), **kw)
+    card = run_sketch_pipeline(None, SketchConfig(
+        input_paths=[fq], device="cuda", devices=[dev, dev], **kw))
+    cpu = run_sketch_pipeline(None, SketchConfig(input_paths=[fq], device="cpu", **kw))
+    assert card.hulk_data.to_json_bytes() == cpu.hulk_data.to_json_bytes()
+    assert card.minimizer_count == cpu.minimizer_count
+    assert pipeline.flush_stats["margin_fallbacks"] == 0
+
+
+@pytest.mark.gpu
+def test_sharded_histogram_step_card_matches_cpu():
+    """sharded_histogram_step over [card, card]: the u8 minimizer and
+    hulk_jump_hash kernels give the CPU's histogram and count."""
+    from hulk_tpu_torch.ops import jump_cuda
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.synth import kernel_batch
+
+    dev = _card()
+    codes, lengths, _, _ = kernel_batch(np.random.default_rng(8), 1000, 160, 60, 160)
+    before = jump_cuda.launches["jump_hash"]
+    card = mesh.sharded_histogram_step([dev, dev], 9 ** 4, 9, 5)(codes, lengths)
+    cpu = mesh.sharded_histogram_step([torch.device("cpu")], 9 ** 4, 9, 5)(codes, lengths)
+    assert jump_cuda.launches["jump_hash"] == before + 2
+    assert torch.equal(card[0].cpu(), cpu[0]) and int(card[1]) == int(cpu[1]) > 0
