@@ -9,15 +9,20 @@ Phases, each printing its seconds:
      library) and the native host runtime (g++); print each build's seconds
      and ptxas's register/spill lines, and the seconds of the backend-stall
      watchdog's probe (16 elements to the card and back).
-  2. kernels: each of the six kernel entries (five C entries, the u8 one
-     also in its cont form) against its plain PyTorch version on the card,
-     at the shapes the driven paths launch (with random pad past each read
-     and rows of length 0 where the path pads) and on corner cases; all
-     must be bit-equal. Each entry's device time at the shape of its path
-     (50 launches queued through its C entry, one event pair) beside its
-     bound, and the plain version's time (CUDA events around one call,
-     median of 20 after 3 warm-ups). Then the KMV, KHF and HMH updates' time
-     a batch (plain PyTorch, CUDA events around one call).
+  2. kernels: each of the eight kernel entries (six C entries, the u8 one
+     also in its cont form, the values one also in its dedup form) against
+     its plain PyTorch version on the card, at the shapes the driven paths
+     launch (with random pad past each read and rows of length 0 where the
+     path pads) and on corner cases; all must be bit-equal. The long-read
+     record scan runs on records of 65,536 and 200,000 bases with 1% N at
+     k=21/w=9 and k=31/w=2, also at a cap of 65,536 (cont chunks), its
+     sorted run heads against the plain version's; the dedup form with its
+     count on a record's sorted run heads. Each entry's device time at the
+     shape of its path (50 launches queued through its C entry, one event
+     pair) beside its bound, the plain version's time (CUDA events around
+     one call, median of 20 after 3 warm-ups), and the values entry's
+     launch floor. Then the KMV, KHF and HMH updates' time a batch (plain
+     PyTorch, CUDA events around one call).
   3. end to end: `sketch` through hulk_tpu_torch.cli.main on 1,000,000
      synthetic 150 bp reads (gzip FASTQ, seed 0) at k=21, w=9, s=42, with
      every entry's launch count set to 0 just before and read just after;
@@ -39,12 +44,13 @@ Phases, each printing its seconds:
      50,000 reads byte-identical on card and CPU.
   7. FASTA: `sketch --fasta` (k=21, w=9, s=42) on 2,000 synthetic contigs
      of 1-200 kb (about 206 Mb, 60 columns, 1% N, seed 0): each contig of
-     65,536 bases or more runs block 0 through the u8 entry once and its
-     continuation blocks through the cont entry once per group of 16; the
+     65,536 bases or more takes the long-read step, one record-scan launch
+     and one dedup binning launch, and never the u8 or cont entries; the
      shorter contigs take the fused step; the first 40 contigs
-     byte-identical on card and CPU, profiled once, and the host's share of
-     their long-read path timed (the blockwise scan against the host
-     spectrum's binning of its values).
+     byte-identical on card and CPU at k=21 and at -k 31 --kmv --khf
+     --hmh, profiled once, and their long records timed through the
+     long-read step and through the blockwise path it replaced (scan and
+     host spectrum binning), in turns, the two histograms equal.
   8. intervals (BASELINE config 4): ten gzip FASTQ files of 1M reads (phase
      3's and nine generated in parallel processes, seeds 1-9) as one -f
      list: (8a) `-i 1000000 -x 0.9 --stream --checkpoint`, reads/s, ten
@@ -120,6 +126,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 READS = 1_000_000
@@ -148,6 +155,12 @@ MINIMIZER_CASES = [(*PRODUCTION, 120, 160), (256, 200, 31, 2, 40, 200),
 # the two-sort step's batch (R, L, k, w) and histogram width (31^4 bins)
 TWO_SORT = (2048, 160, 31, 9)
 NBINS_K31 = 923_521
+# the long-read record scan's cases (L, k, w, cap): 1% N, random pad past
+# the record; a cap of 65,536 puts a 200 kb record into four chunks, the
+# three after the first in the cont form; the first case is timed, with the
+# dedup binning of its run heads
+RECORD_CASES = [(200_000, 21, 9, None), (65_536, 21, 9, None), (200_000, 21, 9, 65_536),
+                (65_536, 31, 2, None), (200_000, 31, 2, None), (200_000, 31, 2, 65_536)]
 # the equality subsets of phases 4-6 (reads) and 7 (contigs)
 SUBSET_READS = 50_000
 SUBSET_CONTIGS = 40
@@ -267,15 +280,16 @@ def fasta_cases() -> tuple[list, list]:
     read, rows with a read): for the u8 and packed entries, the largest
     batch of the top length bucket (MAX_BATCH_POSITIONS / L rows), a small
     one padded with empty rows, and a long read's block 0 [1, DEFAULT_BLOCK];
-    for the cont entry, groups of DEFAULT_GROUP continuation blocks with 3
+    for the cont entry, groups of 16 continuation blocks (the shape the
+    long-read path launched until it scanned a record in one launch) with 3
     live rows (a contig of up to 200 kb; the first, timed) and with all
     live, at k=21/w=9 and k=31/w=2."""
-    from hulk_tpu_torch.ops.longread import DEFAULT_BLOCK as B, DEFAULT_GROUP as G
+    from hulk_tpu_torch.ops.longread import DEFAULT_BLOCK as B
     from hulk_tpu_torch.stream.fastq import DEFAULT_LENGTH_BUCKETS
     from hulk_tpu_torch.stream.pipeline import MAX_BATCH_POSITIONS
 
     top, lo = DEFAULT_LENGTH_BUCKETS[-1], DEFAULT_LENGTH_BUCKETS[-2] + 1
-    rows = MAX_BATCH_POSITIONS // top
+    rows, G = MAX_BATCH_POSITIONS // top, 16
     window = [(rows, top, 21, 9, lo, top, rows), (64, top, 21, 9, lo, top, 5),
               (1, B, 21, 9, B, B, 1)]
     cont = [(G, B, 21, 9, 1000, B, 3), (G, B, 21, 9, 1000, B, G), (G, B, 31, 2, 1000, B, G)]
@@ -508,7 +522,7 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
     a_bin = (skeys.data_ptr(), N, vbits, hist.data_ptr(), n, stream)
     a_jump = (values.data_ptr(), N, n, got.data_ptr(), stream)
     live_vals = svals[:cnt]
-    a_val = (live_vals.data_ptr(), cnt, vhist.data_ptr(), n31, stream)
+    a_val = (live_vals.data_ptr(), cnt, vhist.data_ptr(), n31, 0, None, stream)
     iters_live = jump_iterations(values[live], n)
     iters_all = jump_iterations(values, n)
     iters_vals = jump_iterations(live_vals, n31)
@@ -540,6 +554,109 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
     if f_bin(*a_bin) != 0 or f_jump(*a_jump) != 0 or f_val(*a_val) != 0:
         raise SystemExit("FAIL jump_hash: a timed launch was refused")
     torch.cuda.synchronize()
+    return out
+
+
+def record_checks(rng, dev) -> dict:
+    """The long-read step's two launches against their plain versions: the
+    record scan (hulk_minimizer_record; sorted, bit-equal to the plain
+    version's run heads) on every RECORD_CASES record, and the values
+    entry's dedup form with its count on the first record's sorted run
+    heads and on synthetic sorted values (runs of equal values, all
+    sentinel, one value repeated) at n = 1, 194,481 and 2^31 - 1. Device
+    times at the first record beside their bounds, and the values entry's
+    launch floor (one value a launch)."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch._u64 import usort
+    from hulk_tpu_torch.ops import jump_cuda as jc
+    from hulk_tpu_torch.ops import minimizer_cuda as mc
+    from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch
+    from hulk_tpu_torch.ops.longread import record_heads, record_heads_torch
+    from hulk_tpu_torch.ops.minimizer import record_run_heads_torch
+    from hulk_tpu_torch.synth import sorted_values
+
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for L, k, w, cap in RECORD_CASES:
+        buf = rng.integers(0, 256, size=L + 4096, dtype=np.uint8)
+        buf[:L] = np.where(rng.random(L) < 0.01, 4, rng.integers(0, 4, size=L))
+        c = torch.from_numpy(buf).to(dev)[:L]
+        heads, count = record_heads(c, k=k, w=w, cap=cap)
+        got = usort(heads[:int(count)])
+        want = usort(record_heads_torch(c, k=k, w=w, cap=cap or mc.RECORD_CAP))
+        tag = f"L={L} k={k} w={w}" + (f" cap={cap}" if cap else "")
+        check_equal(f"minimizer_record {tag}", got, want)
+        print(f"minimizer_record {tag}: {got.numel()} run heads, sorted bit-equal", flush=True)
+        if "record" in out:
+            continue
+        f_rec = mc.entry("hulk_minimizer_record")
+        # room for every timed launch's heads: the count is not reset
+        room = torch.empty(64 * L, dtype=torch.int64, device=dev)
+        n0 = torch.zeros((), dtype=torch.int64, device=dev)
+        a_rec = (c.data_ptr(), L, k, w, 0, room.data_ptr(), n0.data_ptr(), stream)
+        out["record"] = dict(
+            ms=device_ms(lambda: f_rec(*a_rec)),
+            plain_ms=time_ms(lambda: record_run_heads_torch(c, k, w)),
+            bound=bound(L + 8 * got.numel() + 8, 2 * MIN_U64_OPS_PER_POS * L,
+                        INT32_OPS_PER_S),
+            err=max_abs_err(got, want), shape=f"one record, {tag} ({got.numel()} run heads)")
+        if f_rec(*a_rec) != 0:
+            raise SystemExit("FAIL minimizer_record: a timed launch was refused")
+        del room
+        svals = got
+
+    # the dedup form on the first record's sorted run heads, k = 21's bins
+    n = NBINS
+    hist = torch.zeros(n, dtype=torch.int32, device=dev)
+    hist0 = torch.zeros_like(hist)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
+    cnt0 = torch.zeros_like(cnt)
+    jc.bin_scatter_values_cuda(hist, svals, dedup=True, count=cnt)
+    bin_scatter_values_torch(hist0, svals, dedup=True, count=cnt0)
+    distinct = torch.unique(svals)
+    check_equal(f"bin_scatter_values dedup, a record's {svals.numel()} run heads", hist, hist0)
+    check_equal("bin_scatter_values dedup count", cnt, cnt0)
+    if int(cnt) != distinct.numel() or int(hist.sum()) != distinct.numel():
+        raise SystemExit(f"FAIL bin_scatter_values dedup: counted {int(cnt)}, binned "
+                         f"{int(hist.sum())}, {distinct.numel()} distinct")
+    for kind, n_vals in (("mixed", 200_000), ("all_sentinel", 0), ("one_key", 5000)):
+        vals = torch.from_numpy(sorted_values(rng, n_vals, one_key=kind == "one_key")
+                                .view(np.int64)).to(dev)
+        for nb in (1, n, 2**31 - 1):
+            got_h = torch.zeros(nb, dtype=torch.int32, device=dev)
+            want_h = torch.zeros(nb, dtype=torch.int32, device=dev)
+            got_c, want_c = torch.zeros_like(cnt), torch.zeros_like(cnt)
+            jc.bin_scatter_values_cuda(got_h, vals, dedup=True, count=got_c)
+            bin_scatter_values_torch(want_h, vals, dedup=True, count=want_c)
+            check_equal(f"bin_scatter_values dedup {kind} n={nb}", got_h, want_h)
+            check_equal(f"bin_scatter_values dedup {kind} n={nb} count", got_c, want_c)
+            del got_h, want_h
+    print(f"bin_scatter_values dedup with count: a record's {svals.numel()} run heads "
+          f"({distinct.numel()} distinct) and full-range/all-sentinel/one-key values at "
+          f"n=1, {n} and 2^31-1: bit-equal", flush=True)
+    f_val = jc.entry("hulk_bin_scatter_values")
+    a_dd = (svals.data_ptr(), svals.numel(), hist.data_ptr(), n, 1, cnt.data_ptr(), stream)
+    iters = jump_iterations(distinct, n)
+    touched = int((hist != 0).sum())
+    err = max(max_abs_err(hist, hist0), max_abs_err(cnt, cnt0))  # before the timed runs
+    out["values_dedup"] = dict(
+        ms=device_ms(lambda: f_val(*a_dd)),
+        plain_ms=time_ms(lambda: bin_scatter_values_torch(hist0, svals, dedup=True,
+                                                          count=cnt0)),
+        bound=bound(8 * svals.numel() + 2 * 4 * touched + 8, 2 * iters, FP64_OPS_PER_S),
+        err=err,
+        shape=f"N={svals.numel()} sorted run heads of a 200 kb record ({distinct.numel()} "
+              f"distinct into {touched} bins, {iters} loop iterations), n={n}")
+    one = svals[:1].clone()
+    a_one = (one.data_ptr(), 1, hist.data_ptr(), n, 1, cnt.data_ptr(), stream)
+    floor_ms = device_ms(lambda: f_val(*a_one))
+    if f_val(*a_dd) != 0 or f_val(*a_one) != 0:
+        raise SystemExit("FAIL bin_scatter_values dedup: a timed launch was refused")
+    torch.cuda.synchronize()
+    print(f"hulk_bin_scatter_values launch floor (dedup, one value a launch): device "
+          f"{floor_ms:.4f} ms a launch", flush=True)
     return out
 
 
@@ -578,13 +695,17 @@ ENTRIES = [
      "jump_pallas.py:284", "buckets"),
     ("jump_hash_values", "hulk_bin_scatter_values", "bin_scatter_values", "jump_hash.cu",
      "jump_pallas.py:284", "values"),
+    ("minimizer_record", "hulk_minimizer_record", "minimizer_record", "minimizer_window.cu",
+     "minimizer_pallas.py:223", "record"),
+    ("jump_hash_values_dedup", "hulk_bin_scatter_values (dedup=1)", "bin_scatter_values_dedup",
+     "jump_hash.cu", "jump_pallas.py:284", "values_dedup"),
 ]
 
 
 def kernel_phase(rng, dev) -> dict:
     mins = minimizer_checks(rng, dev)
     jumps = jump_checks(rng, dev, mins.pop("batch"), mins.pop("two_sort_batch"))
-    results = {**mins, **jumps}
+    results = {**mins, **jumps, **record_checks(rng, dev)}
     for name, entry, _, _, _, key in ENTRIES:
         r = results[key]
         print(f"{name} ({entry}) {r['shape']}: device {r['ms']:.4f} ms a launch, plain "
@@ -730,7 +851,8 @@ def profiled(tag: str, src: str, tmp: str, extra=()):
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and (
-                "minimizer_window_kernel" in e.key or "jump_kernel" in e.key):
+                "minimizer_window_kernel" in e.key or "minimizer_record_kernel" in e.key
+                or "jump_kernel" in e.key):
             print(f"{tag} profiled kernel {e.key}: {e.count} launches, "
                   f"{e.self_device_time_total / e.count:.1f} us a launch", flush=True)
     return events
@@ -770,46 +892,118 @@ def head_records(src: str, dst: str, n: int, marker: bytes) -> None:
         fh.write(data[:cut] if pos >= 0 else data)
 
 
-def long_read_split(src: str) -> None:
-    """Host seconds of the long-read path over the long records of src:
-    the blockwise scan on the card (ops/longread.py, copies and np.unique
-    included) and the host spectrum's binning of its values."""
+def blockwise_values(codes, k: int, w: int):
+    """A long record's distinct values as the long-read path ran until it
+    scanned a record in one launch: block 0 [1, S] through the u8 entry,
+    the continuation blocks in groups of 16 [16, S] rows filled with 5
+    through its cont form, each block's distinct values on the card, the
+    union on the host (np.unique)."""
+    import numpy as np
     import torch
 
-    from hulk_tpu_torch.ops.longread import long_read_minimizers
+    from hulk_tpu_torch.ops.longread import DEFAULT_BLOCK as S
+    from hulk_tpu_torch.ops.minimizer import minimizer_window, per_read_distinct
+
+    def values(rows, lens, cont):
+        c, ln = torch.from_numpy(rows).cuda(), torch.from_numpy(lens).cuda()
+        vals, mask = per_read_distinct(*minimizer_window(c, ln, k, w, cont))
+        return vals[mask].cpu().numpy().view(np.uint64)
+
+    L, H = codes.shape[0], w + k - 1
+    first = np.full((1, S), 5, dtype=np.uint8)
+    first[0, :min(L, S)] = codes[:S]
+    pieces = [values(first, np.array([min(L, S)], dtype=np.int32), False)]
+    starts = list(range(S - H, L - H, S - H))
+    for i in range(0, len(starts), 16):
+        rows, lens = np.full((16, S), 5, dtype=np.uint8), np.zeros(16, dtype=np.int32)
+        for j, g0 in enumerate(starts[i:i + 16]):
+            lens[j] = min(L - g0, S)
+            rows[j, :lens[j]] = codes[g0:g0 + lens[j]]
+        pieces.append(values(rows, lens, True))
+    return np.unique(np.concatenate(pieces))
+
+
+def long_read_times(src: str) -> None:
+    """Host milliseconds a long record of src (k=21, w=9), the two paths
+    in turns record by record: the long-read step on the card
+    (ops/longread.py long_read_step: copy, record scan, the count read,
+    sort, dedup binning into a device histogram), and the blockwise path
+    it replaced (blockwise_values, then the host spectrum's binning of the
+    values). Both histograms must agree. These launches are not counted."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.ops.device_sketches import SketchStates
+    from hulk_tpu_torch.ops.longread import long_read_step, to_device
     from hulk_tpu_torch.sketch.spectrum import KmerSpectrum
     from hulk_tpu_torch.stream.fastq import LongRead, batch_reads_native
 
-    spectrum = KmerSpectrum(21 ** 4)
-    t_scan = t_bin = 0.0
-    n = n_vals = 0
+    spectrum = KmerSpectrum(NBINS)
+    hist = torch.zeros(NBINS, dtype=torch.int32, device="cuda")
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    t = dict.fromkeys(("step", "scan", "bin"), 0.0)
+    n = 0
     for item in batch_reads_native([src], batch_size=16384, fasta=True, raw=True):
         if not isinstance(item, LongRead):
             continue
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        flat = long_read_minimizers(item.codes, k=21, w=9, device="cuda")
+        long_read_step(hist, count, None, to_device(item.codes, "cuda"), k=21, w=9)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        flat = blockwise_values(item.codes, 21, 9)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
         spectrum.add_hashes(flat)
-        t_scan, t_bin = t_scan + t1 - t0, t_bin + time.perf_counter() - t1
-        n, n_vals = n + 1, n_vals + flat.size
-    print(f"long-read path, {n} long records ({n_vals} distinct values): blockwise scan "
-          f"{1e3 * t_scan / max(n, 1):.2f} ms a record, host spectrum binning "
-          f"{1e3 * t_bin / max(n, 1):.2f} ms a record", flush=True)
+        t3 = time.perf_counter()
+        last = item.codes
+        if n:  # the first record warms both paths up
+            t["step"] += t1 - t0
+            t["scan"] += t2 - t1
+            t["bin"] += t3 - t2
+        n += 1
+    if not np.array_equal(hist.cpu().numpy(), spectrum.bins.astype(np.int32)):
+        raise SystemExit("FAIL long-read step: its histogram differs from the blockwise path's")
+    n_distinct = int(count)
+    if n_distinct != int(spectrum.bins.sum()):
+        raise SystemExit("FAIL long-read step: its count differs from the blockwise path's")
+    # the host syncs of one record's step with the three sketches on, as
+    # torch's sync debug mode reports them
+    states = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device="cuda")
+    codes = to_device(last, "cuda")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            long_read_step(hist, count, states, codes, k=21, w=9)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(c.message) for c in caught)
+    if syncs > 1:
+        raise SystemExit(f"FAIL long-read step: {syncs} host syncs a record")
+    m = max(n - 1, 1)
+    print(f"long-read path, {n} long records ({n_distinct} distinct values), the first "
+          f"left out: long_read_step {1e3 * t['step'] / m:.3f} ms a record (copy, record "
+          f"scan, count read, sort, dedup binning on the card); the blockwise path it "
+          f"replaced {1e3 * (t['scan'] + t['bin']) / m:.3f} ms (scan "
+          f"{1e3 * t['scan'] / m:.3f}, host spectrum binning {1e3 * t['bin'] / m:.3f}); "
+          f"histograms equal; {syncs} host sync a record (torch's sync debug mode, "
+          f"with --kmv --khf --hmh)", flush=True)
 
 
 def expected_long_launches(lengths, k: int, w: int) -> tuple[int, int]:
-    """(u8 launches, cont launches) of ops/longread.py over contigs of these
-    lengths: block 0 of each read of the top length bucket's length or more
-    (the native parser's max_read_len), and one cont launch a group of
-    DEFAULT_GROUP continuation blocks."""
-    from hulk_tpu_torch.ops.longread import DEFAULT_BLOCK, DEFAULT_GROUP
+    """(record-scan launches, dedup binning launches) of the long-read step
+    over contigs of these lengths: one scan a chunk of RECORD_CAP (one for
+    every contig under 2^30 bases) and one binning launch for each read of
+    the top length bucket's length or more (the native parser's
+    max_read_len)."""
+    from hulk_tpu_torch.ops.longread import chunks
+    from hulk_tpu_torch.ops.minimizer_cuda import RECORD_CAP
     from hulk_tpu_torch.stream.fastq import DEFAULT_LENGTH_BUCKETS
 
-    H, S = w + k - 1, DEFAULT_BLOCK
     long_ = [int(x) for x in lengths if x >= DEFAULT_LENGTH_BUCKETS[-1]]
-    groups = sum(-(-len(range(S - H, L - H, S - H)) // DEFAULT_GROUP) for L in long_)
-    return len(long_), groups
+    return sum(len(chunks(L, RECORD_CAP, k, w)) for L in long_), len(long_)
 
 
 @contextlib.contextmanager
@@ -1752,22 +1946,28 @@ def main() -> int:
             seconds, n_min, counts = drive("fasta", fa, tmp, flags)
             path_launches["7"] = counts
             check_sketch(os.path.join(tmp, "fasta.json"), 42)
-            n_u8, n_cont = expected_long_launches(lengths, 21, 9)
+            n_rec, n_long = expected_long_launches(lengths, 21, 9)
             print(f"sketch --fasta: {lengths.sum() / seconds / 1e6:.3f} Mb/s; "
-                  f"{n_u8} long contigs, {n_cont} block groups", flush=True)
-            if (n_min <= 0 or counts["minimizer_window"] != n_u8
-                    or counts["minimizer_window_cont"] != n_cont
+                  f"{n_long} long contigs, {n_rec} record scans", flush=True)
+            # each long contig: one record scan a chunk, one dedup binning
+            # launch; the u8 and cont entries no longer run on this path
+            if (n_min <= 0 or counts["minimizer_record"] != n_rec
+                    or counts["bin_scatter_values_dedup"] != n_long
+                    or counts["minimizer_window"] or counts["minimizer_window_cont"]
                     or counts["minimizer_window_packed"] <= 0
                     or counts["bin_scatter_keys"] != counts["minimizer_window_packed"]
                     or counts["bin_scatter_values"] or counts["jump_hash"]):
-                raise SystemExit(f"FAIL FASTA path: launches {counts}, expected u8 {n_u8}, "
-                                 f"cont {n_cont}")
+                raise SystemExit(f"FAIL FASTA path: launches {counts}, expected record "
+                                 f"{n_rec}, dedup binning {n_long}")
             sub = os.path.join(tmp, "first_contigs.fa")
             head_records(fa, sub, SUBSET_CONTIGS, b">")
-            card_vs_cpu(f"FASTA, first {SUBSET_CONTIGS} contigs "
-                        f"({int(lengths[:SUBSET_CONTIGS].sum())} bases)", sub, tmp, flags)
+            label = (f"FASTA, first {SUBSET_CONTIGS} contigs "
+                     f"({int(lengths[:SUBSET_CONTIGS].sum())} bases)")
+            card_vs_cpu(label, sub, tmp, flags)
+            card_vs_cpu(f"{label}, -k 31 --kmv --khf --hmh", sub, tmp,
+                        ("--fasta", "-w", "9", "-k", "31", "--kmv", "--khf", "--hmh"))
             profiled("fasta_subset", sub, tmp, flags)
-            long_read_split(sub)
+            long_read_times(sub)
 
         with phase("8 intervals (d)"):
             stages, files = interval_phase(fq, small, tmp, path_launches)

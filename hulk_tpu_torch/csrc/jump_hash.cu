@@ -37,16 +37,24 @@
 //     skips the sentinel and a key equal to the one before it without
 //     entering the loop, hashes the value bits and atomically adds 1 to the
 //     int32 histogram (integer atomics commute: the histogram is exact);
-//   hulk_bin_scatter_values does the same for the two-sort step's sorted
-//     values (k >= 23): there equal neighbours come from different reads and
-//     each one counts, so it skips only the sentinel, and it hashes all 64
-//     bits (no read id above them; values reach bit 63 from k = 28).
+//   hulk_bin_scatter_values does the same for sorted u64 values, hashing all
+//     64 bits (no read id above them; values reach bit 63 from k = 28). For
+//     the two-sort step's values (k >= 23) equal neighbours come from
+//     different reads and each one counts, so it skips only the sentinel.
+//     With dedup (one long record's sorted run heads,
+//     hulk_tpu_torch/ops/longread.py) it also skips a value equal to the one
+//     before it, and, given a count, adds the number of values it binned to
+//     that int64 counter on the card (a warp sum, a block sum, one atomic a
+//     block), so the record's minimizer count needs no host read.
 //
 // Bound: 8 bytes read per key (plus 4 written per key, or the histogram read
 // and written once), and ~ln(n) + 1 iterations of one f64 reciprocal-divide
 // and one f64 multiply per live key. At the production batch (491,520 keys,
 // n = 194,481) the bytes bound it; chip_smoke.py computes that bound, from
-// the iterations these keys need, beside the measured time.
+// the iterations these keys need, beside the measured time. At the values
+// entry's shapes (some 40,000 values) both bounds are below a launch's own
+// latency: each warp waits on its longest loop, and the launch on its
+// slowest warp.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,29 +76,45 @@ __device__ __forceinline__ double scaled_reciprocal(unsigned d) {
 }
 
 // what a launch does with its keys
-enum Mode { kBuckets, kDedupKeys, kValues };
+enum Mode { kBuckets, kDedupKeys, kValues, kDedupValues };
+
+// count += the block's sum of `mine`: a warp sum, then one atomic a block.
+// Every thread of the block calls it.
+__device__ __forceinline__ void add_block_count(unsigned long long* count, unsigned mine) {
+  __shared__ unsigned warp_sum[kThreads / 32];
+  const unsigned s = __reduce_add_sync(0xFFFFFFFFu, mine);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+    for (int j = 0; j < kThreads / 32; ++j) total += warp_sum[j];
+    if (total) atomicAdd(count, total);
+  }
+}
 
 template <Mode kMode>
 __global__ void __launch_bounds__(kThreads)
 jump_kernel(const u64* __restrict__ keys, long long N, int n, u64 vmask,
-            int32_t* __restrict__ out) {
+            int32_t* __restrict__ out, unsigned long long* __restrict__ count) {
+  constexpr bool kDedup = kMode == kDedupKeys || kMode == kDedupValues;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   long long next = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   const double dn = static_cast<double>(n);
   long long cur = -1;  // index of the key in flight, -1 for none
   u64 key = 0;
   double bp1 = 1.0;    // b + 1 of Go's loop
+  unsigned binned = 0;
   for (;;) {
     if (cur < 0) {  // take the next live key
       for (; next < N; next += stride) {
         const u64 kk = keys[next];
         if (kMode != kBuckets && kk == kSentinel) continue;
-        if (kMode == kDedupKeys && next > 0 && keys[next - 1] == kk) continue;
+        if (kDedup && next > 0 && keys[next - 1] == kk) continue;
         key = kMode == kDedupKeys ? (kk & vmask) : kk;
         cur = next;
         break;
       }
-      if (cur < 0) return;
+      if (cur < 0) break;
       next += stride;
       bp1 = 1.0;
     }
@@ -105,9 +129,13 @@ jump_kernel(const u64* __restrict__ keys, long long N, int n, u64 vmask,
         out[cur] = b;
       } else {
         atomicAdd(out + b, 1);
+        ++binned;
       }
       cur = -1;
     }
+  }
+  if ((kMode == kValues || kMode == kDedupValues) && count != nullptr) {
+    add_block_count(count, binned);
   }
 }
 
@@ -133,7 +161,7 @@ extern "C" int hulk_jump_hash(const void* keys, long long N, long long n,
   if (N <= 0) return 0;
   jump_kernel<kBuckets><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(keys), N, static_cast<int>(n), ~0ULL,
-      static_cast<int32_t*>(out));
+      static_cast<int32_t*>(out), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -146,19 +174,29 @@ extern "C" int hulk_bin_scatter_keys(const void* skeys, long long N, int vbits,
   if (N <= 0) return 0;
   jump_kernel<kDedupKeys><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(skeys), N, static_cast<int>(n),
-      (1ULL << vbits) - 1ULL, static_cast<int32_t*>(hist));
+      (1ULL << vbits) - 1ULL, static_cast<int32_t*>(hist), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // svals [N] u64 sorted (the all-ones sentinel last), hist [n] i32, both
 // contiguous on the current device; 1 <= n < 2^31. hist[jump(v, n)] += 1
-// for every value v that is not the sentinel, duplicates included.
+// for every value v that is not the sentinel, duplicates included, or with
+// dedup != 0 only where v differs from the value before it. count: null, or
+// an int64 [] on the same device that gains the number of values binned.
 // Launched on `stream`; returns the launch's error.
 extern "C" int hulk_bin_scatter_values(const void* svals, long long N, void* hist,
-                                       long long n, void* stream) {
+                                       long long n, int dedup, void* count, void* stream) {
   if (N <= 0) return 0;
-  jump_kernel<kValues><<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u64*>(svals), N, static_cast<int>(n), ~0ULL,
-      static_cast<int32_t*>(hist));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto v = static_cast<const u64*>(svals);
+  const auto h = static_cast<int32_t*>(hist);
+  const auto c = static_cast<unsigned long long*>(count);
+  if (dedup) {
+    jump_kernel<kDedupValues><<<grid_for(N), kThreads, 0, s>>>(v, N, static_cast<int>(n),
+                                                               ~0ULL, h, c);
+  } else {
+    jump_kernel<kValues><<<grid_for(N), kThreads, 0, s>>>(v, N, static_cast<int>(n), ~0ULL,
+                                                          h, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,8 @@ Two-sort step (k >= 23 at R = 2048, and every R from k = 28): the same
 window minima, a per-read sort in unsigned order with its distinct values,
 one flat unsigned sort, then the binning pass over the sorted values (on
 the card one launch of the jump kernel's values entry, which counts equal
-neighbours, since they come from different reads).
+neighbours, since they come from different reads). The long-read step
+(ops/longread.py) bins with the same entry in its dedup form.
 
 The reference picks branches on the device with lax.cond, which has no
 sync-free PyTorch form: a row that overflows the compact width sends the
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from hulk_tpu_torch._u64 import I64MAX, SENT, usort
+from hulk_tpu_torch._u64 import I64MAX, SENT, flip, usort
 from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
 from hulk_tpu_torch.ops.device_sketches import (
     SketchStates,
@@ -122,26 +123,34 @@ def bin_scatter_keys(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> Non
     bin_scatter_keys_cuda(hist, skeys, vbits)
 
 
-def bin_scatter_values_torch(hist: torch.Tensor, svals: torch.Tensor) -> None:
-    """Plain version: bin every live value of a slice of the two-sort
-    step's sorted values (equal neighbours included: they come from
-    different reads) and scatter-add into the int32 histogram in place
-    (hulk_tpu/ops/device_step.py:bin_scatter_slice)."""
+def bin_scatter_values_torch(hist: torch.Tensor, svals: torch.Tensor, *, dedup: bool = False,
+                             count: torch.Tensor | None = None) -> None:
+    """Plain version: bin the live values of sorted values and scatter-add
+    into the int32 histogram in place: every one (the two-sort step's
+    slice, where equal neighbours come from different reads;
+    hulk_tpu/ops/device_step.py:bin_scatter_slice), or with dedup each
+    distinct one once (a long record's run heads). count (int64 [], or
+    None) grows by the number of values binned."""
     live = svals != SENT
+    if dedup:
+        live[1:] &= svals[1:] != svals[:-1]
     bins = jump_hash_torch(torch.where(live, svals, 0), hist.shape[0])
     hist.index_add_(0, bins.to(torch.int64), live.to(torch.int32))
+    if count is not None:
+        count += live.sum()
 
 
-def bin_scatter_values(hist: torch.Tensor, svals: torch.Tensor) -> None:
-    """The two-sort step's binning pass: the plain version for CPU tensors,
-    the jump kernel's values entry for CUDA tensors (it raises rather than
-    fall back)."""
+def bin_scatter_values(hist: torch.Tensor, svals: torch.Tensor, *, dedup: bool = False,
+                       count: torch.Tensor | None = None) -> None:
+    """The values binning pass (the two-sort step's; with dedup the
+    long-read step's): the plain version for CPU tensors, the jump kernel's
+    values entry for CUDA tensors (it raises rather than fall back)."""
     if svals.device.type == "cpu":
-        bin_scatter_values_torch(hist, svals)
+        bin_scatter_values_torch(hist, svals, dedup=dedup, count=count)
         return
     from hulk_tpu_torch.ops.jump_cuda import bin_scatter_values_cuda
 
-    bin_scatter_values_cuda(hist, svals)
+    bin_scatter_values_cuda(hist, svals, dedup=dedup, count=count)
 
 
 def sorted_batch_keys(wmin: torch.Tensor, report: torch.Tensor, *, k: int,
@@ -199,15 +208,15 @@ def distinct_values(skeys: torch.Tensor, vbits: int) -> torch.Tensor:
 
 
 def bottom_k_values(vals: torch.Tensor, s: int) -> torch.Tensor:
-    """The s smallest values of a SENT-padded stream, ascending, SENT
-    padded: the value-sorted prefix KMV needs, without sorting the whole
-    stream (hulk_tpu/ops/device_step.py:369-379). Valid while values fit in
-    positive int64, as on the fused step (2k + 8 <= 62)."""
-    vi = torch.where(vals == SENT, I64MAX, vals)
+    """The s smallest values of a SENT-padded stream of distinct values in
+    unsigned order, ascending, SENT padded: the value-sorted prefix KMV
+    needs, without sorting the whole stream
+    (hulk_tpu/ops/device_step.py:369-379, which holds below 2^63; here the
+    values flip into signed order, where SENT becomes the largest)."""
+    vi = flip(vals)
     if vi.numel() < s:
         vi = torch.cat([vi, vi.new_full((s - vi.numel(),), I64MAX)])
-    asc = torch.topk(vi, s, largest=False, sorted=True).values
-    return torch.where(asc == I64MAX, SENT, asc)
+    return flip(torch.topk(vi, s, largest=False, sorted=True).values)
 
 
 def sorted_batch_values(wmin: torch.Tensor,

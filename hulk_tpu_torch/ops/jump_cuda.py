@@ -7,10 +7,12 @@ version hulk_tpu_torch.hashes.jumphash.jump_hash_torch);
 `bin_scatter_keys_cuda` bins the fused step's sorted keys into the
 histogram in one pass, dedup and scatter-add included (the device step's
 main path; plain version hulk_tpu_torch.ops.device_step.
-bin_scatter_keys_torch); `bin_scatter_values_cuda` bins the two-sort
-step's sorted values, every live one, all 64 bits (k >= 23; plain version
-device_step.bin_scatter_values_torch). Each wrapper checks its inputs,
-launches on PyTorch's current stream and counts its launches in
+bin_scatter_keys_torch); `bin_scatter_values_cuda` bins sorted values on
+all 64 bits: the two-sort step's, every live one (k >= 23), or, with dedup,
+a long record's distinct run heads, adding their number to the stream's
+device count (counted apart, under "bin_scatter_values_dedup"; plain
+version device_step.bin_scatter_values_torch). Each wrapper checks its
+inputs, launches on PyTorch's current stream and counts its launches in
 `launches`.
 """
 from __future__ import annotations
@@ -23,7 +25,8 @@ from hulk_tpu_torch.ops import _build
 
 SOURCE = "hulk_tpu_torch/csrc/jump_hash.cu"
 # launches of each entry in this process
-launches = {"jump_hash": 0, "bin_scatter_keys": 0, "bin_scatter_values": 0}
+launches = {"jump_hash": 0, "bin_scatter_keys": 0, "bin_scatter_values": 0,
+            "bin_scatter_values_dedup": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {
@@ -31,8 +34,8 @@ ARGTYPES = {
     "hulk_jump_hash": [_P, _LL, _LL, _P, _P],
     # skeys, N, vbits, hist, n, stream
     "hulk_bin_scatter_keys": [_P, _LL, _I, _P, _LL, _P],
-    # svals, N, hist, n, stream
-    "hulk_bin_scatter_values": [_P, _LL, _P, _LL, _P],
+    # svals, N, hist, n, dedup, count (or null), stream
+    "hulk_bin_scatter_values": [_P, _LL, _P, _LL, _I, _P, _P],
 }
 
 
@@ -97,17 +100,26 @@ def bin_scatter_keys_cuda(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -
     _build.count_launch(launches, "bin_scatter_keys")
 
 
-def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor) -> None:
-    """hist [n] int32 += the binned live values of svals [N] int64 (u64
-    bits, the all-ones sentinel marks dead lanes), every one of them
-    (equal neighbours come from different reads), in place, on one CUDA
-    device."""
+def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor, *, dedup: bool = False,
+                            count: torch.Tensor | None = None) -> None:
+    """hist [n] int32 += the binned live values of the sorted svals [N]
+    int64 (u64 bits, the all-ones sentinel marks dead lanes), in place, on
+    one CUDA device: every one of them (the two-sort step: equal neighbours
+    come from different reads), or with dedup each distinct one once.
+    count: None, or an int64 [] on the same device that grows by the number
+    of values binned."""
     _check_hist("bin_scatter_values_cuda", hist, svals)
+    if count is not None and (count.device != svals.device or count.dtype != torch.int64
+                              or count.dim() != 0):
+        raise ValueError("bin_scatter_values_cuda: count must be an int64 [] on the "
+                         "values' device")
     if svals.numel() == 0:
         return
+    name = "bin_scatter_values_dedup" if dedup else "bin_scatter_values"
     fn = entry("hulk_bin_scatter_values")
     with torch.cuda.device(svals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(svals.data_ptr(), svals.numel(), hist.data_ptr(), hist.shape[0], stream)
-    _build.check_launch(err, "bin_scatter_values")
-    _build.count_launch(launches, "bin_scatter_values")
+        err = fn(svals.data_ptr(), svals.numel(), hist.data_ptr(), hist.shape[0], int(dedup),
+                 None if count is None else count.data_ptr(), stream)
+    _build.check_launch(err, name)
+    _build.count_launch(launches, name)

@@ -15,12 +15,13 @@ Reference quirks reproduced bit-for-bit:
   * X = hash64(canonical)<<8 | uint64(int32(span)), span = min(i-w+2, k),
     sign-extended when k<w makes the span negative (127-131,156-158).
 
-`minimizer_window` (u8 codes, with a `cont` form for the continuation
-blocks of long reads) and `minimizer_window_packed` (the v2 transfer
-layout, the device step's main path) are the entry points: each takes its
-plain version for a CPU tensor and the CUDA kernel (ops/minimizer_cuda.py)
-for a CUDA tensor. `per_read_distinct` turns their output into each read's
-distinct values, as the two-sort step and the long-read scan need.
+`minimizer_window` (u8 codes, with a `cont` form for the chunks of long
+records) and `minimizer_window_packed` (the v2 transfer layout, the device
+step's main path) are the entry points: each takes its plain version for a
+CPU tensor and the CUDA kernel (ops/minimizer_cuda.py) for a CUDA tensor.
+`per_read_distinct` turns their output into each read's distinct values,
+as the two-sort step needs. `record_run_heads_torch` is the plain version
+of the long-read record scan (ops/longread.py): one record's run heads.
 """
 from __future__ import annotations
 
@@ -48,11 +49,12 @@ def minimizer_window_torch(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     over the trailing w positions; report [R, L] bool: where the reference
     reports the queue front (valid k-mer at i, i >= w-1).
 
-    cont: the rows are continuation blocks of longer reads (ops/longread.py)
-    that overlap the block before by w+k-1 bases: the span is k at every
-    position and reporting starts at local position w+k-1, where every
-    entry of the window equals the in-context one (the derivation is in
-    hulk_tpu/ops/minimizer.py:minimizer_window's docstring)."""
+    cont: the rows are chunks after the first of longer reads
+    (ops/longread.py) that overlap the chunk before by w+k-1 bases: the
+    span is k at every position and reporting starts at local position
+    w+k-1, where every entry of the window equals the in-context one (the
+    derivation is in hulk_tpu/ops/minimizer.py:minimizer_window's
+    docstring)."""
     check_kw(k, w)
     R, L = codes.shape
     dev = codes.device
@@ -98,6 +100,21 @@ def minimizer_window(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     from hulk_tpu_torch.ops.minimizer_cuda import minimizer_window_cuda
 
     return minimizer_window_cuda(codes, lengths, k, w, cont)
+
+
+def record_run_heads_torch(codes: torch.Tensor, k: int, w: int,
+                           cont: bool = False) -> torch.Tensor:
+    """Plain version of the record scan (csrc/minimizer_window.cu
+    hulk_minimizer_record): one record's u8 codes [L] -> the window minima
+    at its run heads, int64 (u64 bits), in position order; cont as
+    minimizer_window_torch's. A run head is a reported position whose
+    window minimum differs from the position before's, or whose position
+    before is not reported: every distinct reported value has one."""
+    lengths = torch.tensor([codes.shape[0]], dtype=torch.int32, device=codes.device)
+    wmin, report = minimizer_window_torch(codes[None, :], lengths, k, w, cont)
+    head = report.clone()
+    head[:, 1:] &= ~(report[:, :-1] & (wmin[:, 1:] == wmin[:, :-1]))
+    return wmin[head]
 
 
 def per_read_distinct(wmin: torch.Tensor,

@@ -1,16 +1,17 @@
 """Wrappers of the Hopper minimizer-window kernel (csrc/minimizer_window.cu).
 
-Replaces hulk_tpu/ops/minimizer_pallas.py:minimizer_window_pallas. Two
+Replaces hulk_tpu/ops/minimizer_pallas.py:minimizer_window_pallas. Three
 C entries share the kernel's scan: `minimizer_window_packed_cuda` reads the
-v2 transfer layout (the device step's main path) and `minimizer_window_cuda`
-reads u8 codes through hulk_minimizer_window, in its cont form for the
-continuation blocks of long reads (cont=True; counted apart, under
-"minimizer_window_cont"). The Pallas kernel has no cont form (hulk_tpu
-scans long-read blocks with XLA). The
-plain versions are minimizer_window_packed_torch and minimizer_window_torch
-(hulk_tpu_torch.ops.minimizer). Each wrapper checks
-its inputs, allocates the outputs, launches on PyTorch's current stream and
-counts its launches in `launches`.
+v2 transfer layout (the device step's main path); `minimizer_window_cuda`
+reads u8 codes [R, L] through hulk_minimizer_window, also in its cont form
+(cont=True; counted apart, under "minimizer_window_cont"), which the
+Pallas kernel lacks; `minimizer_record_cuda` scans one long record's u8
+codes [L] and appends only its run heads to a buffer behind a device count
+(the long-read path, ops/longread.py). The plain versions are
+minimizer_window_packed_torch, minimizer_window_torch and
+record_run_heads_torch (hulk_tpu_torch.ops.minimizer). Each wrapper checks
+its inputs, launches on PyTorch's current stream and counts its launches in
+`launches`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from hulk_tpu_torch.ops.minimizer import check_kw
 
 SOURCE = "hulk_tpu_torch/csrc/minimizer_window.cu"
 # launches of each entry in this process
-launches = {"minimizer_window": 0, "minimizer_window_packed": 0, "minimizer_window_cont": 0}
+launches = {"minimizer_window": 0, "minimizer_window_packed": 0, "minimizer_window_cont": 0,
+            "minimizer_record": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {
@@ -31,7 +33,11 @@ ARGTYPES = {
     "hulk_minimizer_window": [_P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P],
     # codes2, mask8, lengths, R, L, k, w, wmin, report, stream
     "hulk_minimizer_window_packed": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P],
+    # codes, L, k, w, cont, heads, count, stream
+    "hulk_minimizer_record": [_P, _LL, _I, _I, _I, _P, _P, _P],
 }
+# the most positions one hulk_minimizer_record launch scans (csrc kRecordCap)
+RECORD_CAP = 1 << 30
 
 
 def entry(name: str):
@@ -103,3 +109,34 @@ def minimizer_window_packed_cuda(codes2: torch.Tensor, mask8: torch.Tensor,
     _build.check_launch(err, "minimizer_window_packed")
     _build.count_launch(launches, "minimizer_window_packed")
     return wmin, report
+
+
+def minimizer_record_cuda(codes: torch.Tensor, heads: torch.Tensor, count: torch.Tensor,
+                          k: int, w: int, cont: bool = False) -> None:
+    """One record's u8 codes [L] (0 < L <= RECORD_CAP), contiguous on a CUDA
+    device: its run heads (record_run_heads_torch's, in no order) go to
+    heads [N] int64 from index count, and count [] int64 grows by their
+    number, in place. heads must have room for L more after count; cont as
+    minimizer_window_torch's."""
+    check_kw(k, w)
+    dev = codes.device
+    if dev.type != "cuda" or heads.device != dev or count.device != dev:
+        raise ValueError("minimizer_record_cuda: all inputs must be on one CUDA device")
+    if codes.dtype != torch.uint8 or heads.dtype != torch.int64 or count.dtype != torch.int64:
+        raise TypeError("minimizer_record_cuda: codes must be uint8, heads and count int64")
+    if codes.dim() != 1 or heads.dim() != 1 or count.dim() != 0 or not (
+            codes.is_contiguous() and heads.is_contiguous()):
+        raise ValueError("minimizer_record_cuda: codes [L] and heads [N] contiguous, "
+                         "count [] expected")
+    L = codes.shape[0]
+    if L > RECORD_CAP:
+        raise ValueError(f"minimizer_record_cuda: {L} positions, at most {RECORD_CAP} a launch")
+    if L == 0:
+        return
+    fn = entry("hulk_minimizer_record")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(codes.data_ptr(), L, k, w, int(cont), heads.data_ptr(), count.data_ptr(),
+                 stream)
+    _build.check_launch(err, "minimizer_record")
+    _build.count_launch(launches, "minimizer_record")

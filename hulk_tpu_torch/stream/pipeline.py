@@ -10,8 +10,9 @@ device once, and stepped batch by batch (ops/device_step.py) into an int32
 histogram and the KMV/KHF/HMH states, which stay on the device: the
 histogram until an interval boundary or the end, where the exact flush
 turns it into the histosketch, the secondary sketches until the end. A read
-of 65,536 bases or more arrives alone (LongRead) and is scanned block by
-block (ops/longread.py) into the host spectrum and sketch objects. Interval
+of 65,536 bases or more arrives alone (LongRead) and goes through the
+long-read step (ops/longread.py) on the stream's device (shard 0 of a
+sharded stream) into the same histogram, count and states. Interval
 boundaries are global read indices, as in the reference, so the output does
 not depend on batching or on the device.
 
@@ -56,7 +57,7 @@ from hulk_tpu_torch.ops.device_step import (
     ship_group,
     stream_bucket,
 )
-from hulk_tpu_torch.ops.longread import long_read_minimizers
+from hulk_tpu_torch.ops.longread import long_read_step, to_device
 from hulk_tpu_torch.ops.minimizer import short_read_mask
 from hulk_tpu_torch.parallel import distributed as dist
 from hulk_tpu_torch.parallel import mesh
@@ -209,6 +210,14 @@ class _DeviceStream:
             states=self.states,
         )
 
+    def long_read(self, codes: np.ndarray) -> None:
+        """One record past the batched path's length cap into the histogram,
+        count and states of the stream's (first) device: one copy, one
+        record scan, one sort and one binning launch (ops/longread.py)."""
+        cfg = self.cfg
+        long_read_step(self.hist, self.count, self.states, to_device(codes, self.device),
+                       k=cfg.kmer_size, w=cfg.window_size)
+
     def minimizer_total(self) -> int:
         self._flush_staged()
         return int(self.count)
@@ -232,7 +241,7 @@ class _DeviceStream:
     def collect(self, kmv, khf, hmh) -> None:
         """Merge the device states into the host objects (bottom-s union,
         elementwise minimum, register maximum: each sketch's exact merge, so
-        the host's own long-read values and a resumed state survive)."""
+        a resumed state survives)."""
         self._flush_staged()
         _merge_states(self.states, kmv, khf, hmh, self.cfg.sketch_size)
 
@@ -241,7 +250,7 @@ def _merge_states(st: SketchStates | None, kmv, khf, hmh, s: int) -> None:
     """Merge device sketch states into the host objects: bottom-s union of
     the multisets, elementwise minimum, register maximum. Each is the
     sketch's exact merge, so merging shard after shard gives the merge of
-    all, and the host's own long-read values and a resumed state survive."""
+    all, and a resumed state survives."""
     u64 = lambda t: t.cpu().numpy().view(np.uint64)  # noqa: E731
     if kmv is not None:
         vals = u64(st.kmv)
@@ -261,10 +270,12 @@ class _ShardedDeviceStream(_DeviceStream):
     device) goes to the devices in contiguous blocks of ceil(rows / D)
     rows; each device packs its blocks into its own pinned v2 buffer and
     copies it over. A device that got no rows of a batch steps nothing for
-    it. The shards merge exactly where the one-device stream hands its
-    state over (take_hist, drain_into, collect, minimizer_total), so the
-    rest of the pipeline does not change. The shards step one after
-    another in the streaming thread (one host sync a batch each)."""
+    it. Long records go to shard 0 (hists[0], counts[0] and
+    shard_states[0] are the one-device stream's own). The shards merge
+    exactly where the one-device stream hands its state over (take_hist,
+    drain_into, collect, minimizer_total), so the rest of the pipeline does
+    not change. The shards step one after another in the streaming thread
+    (one host sync a batch each)."""
 
     def __init__(self, cfg: SketchConfig, nbins: int, devices: list):
         super().__init__(cfg, nbins, devices[0])
@@ -389,19 +400,6 @@ def _load_checkpoint(path, cfg, hs, kmv, khf, hmh):
         int(z["seq_count"]), int(z["length_total"]),
         int(z["minimizer_count"]), origin,
     )
-
-
-def _merge_host_hist(hist: torch.Tensor, spectrum: KmerSpectrum) -> torch.Tensor:
-    """Add the host spectrum's counts (long reads') onto a device histogram
-    and wipe the host side: the device flush's merge point (exact, integer
-    counts). The copy to the device is made from an owned int32 copy of the
-    counts and finishes before the wipe: torch.from_numpy shares memory,
-    and a non-blocking copy of spectrum.bins itself could read it after
-    wipe() has zeroed it."""
-    host = torch.from_numpy(spectrum.bins.astype(np.int32))
-    out = hist + host.to(hist.device)
-    spectrum.wipe()
-    return out
 
 
 class _DeviceFlusher:
@@ -646,10 +644,13 @@ def run_sketch_pipeline(
     # The flush of an interval runs in one background worker, overlapped
     # with the next interval's streaming. One flush at most is in flight
     # (the histosketch is sequential across intervals): the streaming
-    # thread waits for it before each drain and before a long read touches
-    # the host spectrum, which the worker owns meanwhile. Both threads
-    # issue device work to the same (default) stream, so it runs in issue
-    # order, and the worker holds its histogram until it is done with it.
+    # thread waits for it before each drain into the host spectrum, which
+    # the worker owns meanwhile. Long reads go to the device's carries, as
+    # short reads do, and need no wait: the worker holds only the histogram
+    # handed to it (take_hist starts a new one; drain_into copies to the
+    # host and zeroes it before the hand-off) and deep copies of the host
+    # sketch objects. Both threads issue device work to the same (default)
+    # stream, so it runs in issue order.
     pool = ThreadPoolExecutor(1)
     pending = None
 
@@ -669,21 +670,13 @@ def run_sketch_pipeline(
             if batch.file_idx is not None:
                 last_origin = (batch.file_idx, batch.reads_in_file_end)
             if isinstance(batch, LongRead):
-                # past the batched path's length cap: the blockwise scan,
-                # into the host spectrum and sketch objects (hulk_tpu's
-                # pipeline.py:1023-1052); the device states merge with them
-                # at the end
-                wait_flush()
+                # past the batched path's length cap (hulk_tpu's
+                # pipeline.py:1023-1052, which scans it blockwise into the
+                # host spectrum): the long-read step on the device
                 L = int(batch.codes.shape[0])
                 if L < w + k - 1:
                     raise PipelineError("sequence length must be >= w + k - 1")
-                flat = long_read_minimizers(batch.codes, k=k, w=w, device=dev.device)
-                minimizer_count += int(flat.shape[0])
-                if flat.shape[0]:
-                    spectrum.add_hashes(flat)
-                    for obj in (kmv, khf, hmh):
-                        if obj is not None:
-                            obj.add_hashes(flat)
+                dev.long_read(batch.codes)
                 n_in_batch = 1
                 seq_count += 1
                 length_total += L
@@ -704,8 +697,6 @@ def run_sketch_pipeline(
                 hist = None
                 if flusher is not None:
                     hist = dev.take_hist()
-                    if spectrum.cardinality() != 0:
-                        hist = _merge_host_hist(hist, spectrum)
                 else:
                     dev.drain_into(spectrum)
                 snap_states = (kmv, khf, hmh)
@@ -723,10 +714,7 @@ def run_sketch_pipeline(
         log.info("generating final histosketch of k-mer spectra...")
         wait_flush()
         if flusher is not None:
-            h = dev.take_hist()
-            if spectrum.cardinality() != 0:
-                h = _merge_host_hist(h, spectrum)
-            flusher.flush_from(h)
+            flusher.flush_from(dev.take_hist())
             flusher.sync_cms()
         else:
             dev.drain_into(spectrum)

@@ -138,6 +138,102 @@ def test_bin_scatter_values_kernel_matches_plain(kind, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("L,k,w,cap", [(65_536, 21, 9, None), (200_000, 31, 2, None),
+                                       (200_000, 21, 9, 65_536), (5000, 15, 5, 100),
+                                       (29, 21, 9, None)])
+def test_record_scan_kernel_matches_cpu(L, k, w, cap):
+    """The record scan on the card (random pad past the record; a cap puts
+    the chunks after the first through the cont form) against the plain
+    version on the CPU: the same run heads, sorted."""
+    from hulk_tpu_torch._u64 import usort
+    from hulk_tpu_torch.ops.longread import record_heads, record_heads_torch
+    from hulk_tpu_torch.ops.minimizer_cuda import RECORD_CAP
+
+    dev = _card()
+    rng = np.random.default_rng(L + k + w)
+    buf = rng.integers(0, 256, size=L + 4096, dtype=np.uint8)
+    buf[:L] = np.where(rng.random(L) < 0.01, 4, rng.integers(0, 4, size=L))
+    heads, count = record_heads(torch.from_numpy(buf).to(dev)[:L], k=k, w=w, cap=cap)
+    want = record_heads_torch(torch.from_numpy(buf[:L]), k=k, w=w, cap=cap or RECORD_CAP)
+    assert int(count) == want.numel() > 0
+    assert torch.equal(usort(heads[:int(count)]).cpu(), usort(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 194481, 923521])
+@pytest.mark.parametrize("kind", ["mixed", "all_sentinel", "one_key"])
+def test_dedup_values_kernel_matches_cpu(kind, n):
+    """The values entry's dedup form with its count on the card against the
+    plain version on the CPU."""
+    from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch
+    from hulk_tpu_torch.ops.jump_cuda import bin_scatter_values_cuda
+    from hulk_tpu_torch.synth import sorted_values
+
+    dev = _card()
+    n_vals = {"mixed": 200_000, "all_sentinel": 0, "one_key": 5000}[kind]
+    vals = torch.from_numpy(sorted_values(np.random.default_rng(n_vals), n_vals,
+                                          one_key=kind == "one_key").view(np.int64))
+    got = torch.zeros(n, dtype=torch.int32, device=dev)
+    got_count = torch.zeros((), dtype=torch.int64, device=dev)
+    bin_scatter_values_cuda(got, vals.to(dev), dedup=True, count=got_count)
+    want = torch.zeros(n, dtype=torch.int32)
+    want_count = torch.zeros((), dtype=torch.int64)
+    bin_scatter_values_torch(want, vals, dedup=True, count=want_count)
+    assert int(want_count) == int(want.sum()) == np.unique(vals.numpy()[vals.numpy() != -1]).size
+    assert int(got_count) == int(want_count)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_long_read_step_card_matches_cpu():
+    """One 150 kb record through the long-read step with the three sketches,
+    on the card and on the CPU: the same histogram, count and states."""
+    from hulk_tpu_torch.ops.device_sketches import SketchStates
+    from hulk_tpu_torch.ops.longread import long_read_step, to_device
+
+    dev = _card()
+    rng = np.random.default_rng(150)
+    codes = np.where(rng.random(150_000) < 0.01, 4,
+                     rng.integers(0, 4, size=150_000)).astype(np.uint8)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        hist = torch.zeros(923521, dtype=torch.int32, device=d)
+        count = torch.zeros((), dtype=torch.int64, device=d)
+        st = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device=d)
+        long_read_step(hist, count, st, to_device(codes, d), k=31, w=9)
+        out[d.type] = [t.cpu() for t in (hist, count, st.kmv, st.khf, st.hmh)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_long_read_step_syncs_once():
+    """The long-read step on the card reads the run heads' count back and
+    makes no other host sync (torch's sync debug mode), sketches on."""
+    import warnings
+
+    from hulk_tpu_torch.ops.device_sketches import SketchStates
+    from hulk_tpu_torch.ops.longread import long_read_step, to_device
+
+    dev = _card()
+    codes = np.random.default_rng(7).integers(0, 5, size=100_000).astype(np.uint8)
+    hist = torch.zeros(194481, dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    st = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device=dev)
+    long_read_step(hist, count, st, to_device(codes, dev), k=21, w=9)  # warm-up
+    c = to_device(codes, dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            long_read_step(hist, count, st, c, k=21, w=9)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert sum("called a synchronizing" in str(w.message) for w in caught) == 1
+
+
+@pytest.mark.gpu
 def test_two_sort_batch_values_kernel_matches_plain():
     """The values entry on a k=31 two-sort batch (values reach bit 63)."""
     from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch, sorted_batch_values

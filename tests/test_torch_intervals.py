@@ -270,10 +270,11 @@ def test_flush_worker_overlaps_and_waits(reads, tmp_path, monkeypatch):
 
 def test_slow_flush_worker_stays_exact(tmp_path, monkeypatch):
     """The worker and the streaming thread share the histosketch and the
-    host spectrum. With every flush slowed down and the interpreter
-    switching threads as often as it can, the streaming thread runs ahead
-    and must wait (before each drain, and before each long record touches
-    the spectrum): stdout and out.json stay the unhurried run's."""
+    host spectrum. With every flush slowed down past an interval's
+    streaming and the interpreter switching threads as often as it can,
+    the streaming thread runs ahead and must wait before each drain (a
+    long record goes to the device stream's carries and waits for
+    nothing): stdout and out.json stay the unhurried run's."""
     import time
 
     from hulk_tpu_torch.sketch.histosketch import HistoSketch
@@ -290,7 +291,7 @@ def test_slow_flush_worker_stays_exact(tmp_path, monkeypatch):
     add = HistoSketch.add_elements
 
     def slow_add(self, *a):
-        time.sleep(0.05)
+        time.sleep(0.3)
         return add(self, *a)
 
     monkeypatch.setattr(HistoSketch, "add_elements", slow_add)

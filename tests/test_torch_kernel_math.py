@@ -9,12 +9,15 @@ These tests check, here, the identities their designs rest on:
   fields of the packed rows (codes at bits 2p, N flags spread to bits 2p):
   rc = (~G & mask) | N and fwd = revpairs(G | N >> 4) >> (64 - 2k), and
   takes window minima as min(suffix[t], prefix[t + w - 1]) over blocks of w
-  (van Herk / Gil-Werman); its cont form (the long-read blocks) sets the
-  span to k and reports from position w + k - 1;
+  (van Herk / Gil-Werman); its cont form (the long-read chunks) sets the
+  span to k and reports from position w + k - 1; its record scan stages one
+  more entry a segment (E = P + w, from position p0 - w) so that the run-head
+  test at a segment's first position sees position p0 - 1's window, with
+  the van Herk blocks starting afresh at every segment;
 * csrc/jump_hash.cu replaces the divide by a reciprocal scaled by 2^31,
   exits when the product p >= n and carries trunc(p) + 1 as a double; its
   values entry bins every live value, equal neighbours included, on all 64
-  bits.
+  bits, or in its dedup form each distinct one once, with its count.
 
 Tolerance: bit-equality (integer arithmetic and IEEE f64 operations rounded
 once each to nearest, the same in NumPy as on the card).
@@ -27,6 +30,7 @@ from hulk_tpu_torch.hashes.jumphash import jump_hash_np
 from hulk_tpu_torch.ops import minimizer as tm
 
 from hulk_tpu_torch.ops.device_step import bin_scatter_values_torch
+from hulk_tpu_torch.ops.longread import chunks
 from hulk_tpu_torch.synth import kernel_batch as tm_kernel_batch
 from hulk_tpu_torch.synth import sorted_values
 
@@ -78,7 +82,8 @@ def field(words: np.ndarray, o: np.ndarray) -> np.ndarray:
     return np.where(sh == 0, lo, lo | hi)
 
 
-def model_minimizer_packed(c2, m8, lengths, k, w, cont=False):
+def model_entries(c2, m8, lengths, k, w, cont=False):
+    """The kernel's entries x [r, l] (U64MAX where invalid) and validity."""
     r, l = c2.shape[0], 4 * c2.shape[1]
     cw, nw = staged_rows(c2, m8)
     mask, nlim = U64((1 << (2 * k)) - 1), U64((1 << (2 * k + 1)) - 1)
@@ -93,15 +98,49 @@ def model_minimizer_packed(c2, m8, lengths, k, w, cont=False):
     canon = np.minimum(fwd, rc)
     span = np.full(q.shape, k) if cont else np.minimum(q - (w - 2), k)
     span = span.astype(np.int64).view(np.uint64)
-    x = np.where(valid, (hash64(canon, int(mask)) << U64(8)) | span, MAX)
-    # van Herk / Gil-Werman over entries e = 0.. (e = position + w - 1)
-    e = np.concatenate([np.full((r, w - 1), MAX), x], axis=1)
+    return np.where(valid, (hash64(canon, int(mask)) << U64(8)) | span, MAX), valid
+
+
+def van_herk(e: np.ndarray, w: int):
+    """Prefix and suffix minima over blocks of w entries from entry 0."""
+    r = e.shape[0]
     nblk = -(-e.shape[1] // w)
     blk = np.concatenate([e, np.full((r, nblk * w - e.shape[1]), MAX)], 1).reshape(r, nblk, w)
     pre = np.minimum.accumulate(blk, axis=2).reshape(r, -1)
     suf = np.minimum.accumulate(blk[..., ::-1], axis=2)[..., ::-1].reshape(r, -1)
+    return pre, suf
+
+
+def model_minimizer_packed(c2, m8, lengths, k, w, cont=False):
+    x, valid = model_entries(c2, m8, lengths, k, w, cont)
+    r, l = x.shape
+    q = np.arange(l)[None, :]
+    # van Herk / Gil-Werman over entries e = 0.. (e = position + w - 1)
+    pre, suf = van_herk(np.concatenate([np.full((r, w - 1), MAX), x], axis=1), w)
     wmin = np.minimum(suf[:, :l], pre[:, w - 1:w - 1 + l])
     return wmin, valid & (q >= (w + k - 1 if cont else w - 1))
+
+
+def model_record_heads(x, valid, k, w, cont, P):
+    """hulk_minimizer_record on one record's entries x [L]: segments of P
+    positions, each with entries from position p0 - w (invalid before the
+    record), van Herk blocks from the segment's entry 0, and position
+    p0 + h's window the entries h+1 .. h+w for h = -1 .. Pe-1; a head where
+    h >= 0 reports and h - 1 does not, or reports another minimum."""
+    L, first = x.shape[0], w + k - 1 if cont else w - 1
+    heads = []
+    for p0 in range(0, L, P):
+        Pe = min(P, L - p0)
+        q = np.arange(p0 - w, p0 + Pe)
+        xe = np.where(q >= 0, x[np.maximum(q, 0)], MAX)
+        ve = (q >= 0) & valid[np.maximum(q, 0)]
+        pre, suf = van_herk(xe[None, :], w)
+        h = np.arange(-1, Pe)
+        m = np.minimum(suf[0, h + 1], pre[0, h + w])
+        rep = ve[h + w] & (p0 + h >= first)
+        head = rep[1:] & ~(rep[:-1] & (m[:-1] == m[1:]))
+        heads.append(m[1:][head])
+    return np.concatenate(heads)
 
 
 @pytest.mark.parametrize("k", [1, 3, 21, 31])
@@ -178,3 +217,34 @@ def test_values_binning_identities(n):
     bin_scatter_values_torch(hist, torch.from_numpy(svals.view(np.int64)))
     assert hist.sum() == live.sum() > 3000
     assert np.array_equal(hist.numpy(), model)
+
+
+@pytest.mark.parametrize("k,w", [(1, 1), (3, 20), (21, 9), (31, 2), (15, 64)])
+@pytest.mark.parametrize("cont", [False, True])
+def test_record_scan_identities(k, w, cont):
+    """The record scan's segments (the kernel's P, and small ones that put
+    many segment boundaries inside short runs) with their one-entry halo
+    give exactly the run heads of the one-piece scan, as a multiset."""
+    rng = np.random.default_rng(13 * k + w + cont)
+    L = 2000
+    codes, ln, c2, m8 = tm_kernel_batch(rng, 1, L, L, L, n_frac=0.05)
+    x, valid = model_entries(c2, m8, ln, k, w, cont)
+    want = np.sort(tm.record_run_heads_torch(torch.from_numpy(codes[0]), k, w, cont)
+                   .numpy().view(np.uint64))
+    assert want.size > 0
+    nseg = -(-L // 256)
+    for P in (-(-L // nseg), 7, 1, 64):
+        got = model_record_heads(x[0], valid[0], k, w, cont, P)
+        assert np.array_equal(np.sort(got), want), P
+
+
+def test_chunk_bound_of_the_cont_form():
+    """chunks() refuses a cap whose second chunk's first window entry,
+    cap - H + k, lies before position H - 1, where the span reaches k."""
+    for k, w in ((15, 5), (21, 9), (31, 2), (3, 64), (11, 1)):
+        H = w + k - 1
+        low = H + max(1, w - 2)
+        assert (low - H) + k >= H - 1
+        assert chunks(10_000, low, k, w)[1][0] == low - H
+        with pytest.raises(ValueError):
+            chunks(10_000, low - 1, k, w)

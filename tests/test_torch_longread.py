@@ -1,18 +1,26 @@
 """Long reads and FASTA against hulk_tpu on the CPU: the cont form of the
-window (ops/minimizer.py), the blockwise scan (ops/longread.py) against
+window (ops/minimizer.py), the long-read scan (ops/longread.py) against
 hulk_tpu.ops.longread and against a scan of the read in one piece, and
 `sketch` end to end on FASTA (short records; contigs past the top length
-bucket of 65,536 bases) and on FASTQ reads past 65,536 bases, with and
-without -i.
+bucket of 65,536 bases) and on FASTQ reads past 65,536 bases: with and
+without -i, at k = 31 with the three sketches, with --stream, killed at a
+checkpoint between two long records and resumed, and sharded over three
+CPU devices. Long records go to the device stream's carries, never to the
+host spectrum or sketch objects.
 
-Tolerance: bit-equality of the distinct values; byte-identical out.json.
+Tolerance: bit-equality of the distinct values; byte-identical out.json
+and stdout.
 """
+import io
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 import hulk_tpu.cli as jax_cli
 import hulk_tpu_torch.cli as torch_cli
+from hulk_tpu_torch.sketch import hyperminhash, minhash, spectrum
 from hulk_tpu.ops.longread import long_read_minimizers as jax_long_read
 from hulk_tpu.ops.minimizer import minimizer_window as jax_window
 from hulk_tpu_torch.ops import minimizer as tm
@@ -43,7 +51,7 @@ def test_cont_window_matches_reference(k, w):
 ])
 def test_long_read_minimizers_match_reference(k, w, L, block, group):
     codes = read_codes(np.random.default_rng(L + k), L)
-    got = long_read_minimizers(codes, k=k, w=w, block=block, group=group, device="cpu")
+    got = long_read_minimizers(codes, k=k, w=w, cap=block, device="cpu")
     want = jax_long_read(codes, k=k, w=w, block=block, group=group)
     assert got.dtype == np.uint64 and got.size > 0
     assert np.array_equal(got, want)
@@ -57,7 +65,7 @@ def test_long_read_minimizers_match_one_piece(k, w):
     vals, mask = tm.minimizer_scan(torch.from_numpy(codes[None, :]),
                                    torch.tensor([L], dtype=torch.int32), k, w)
     whole = np.sort(vals[mask].numpy().view(np.uint64))
-    got = long_read_minimizers(codes, k=k, w=w, block=1500, group=4, device="cpu")
+    got = long_read_minimizers(codes, k=k, w=w, cap=1500, device="cpu")
     assert np.array_equal(got, whole)
 
 
@@ -91,10 +99,100 @@ def inputs(tmp_path_factory):
     ("records", ["--fasta"]), ("records", ["--fasta", "-i", "100"]),
     ("contigs", ["--fasta"]), ("contigs", ["--fasta", "-i", "11", "--kmv", "--khf", "--hmh"]),
     ("long_fastq", ["--kmv", "--hmh"]),
+    ("contigs", ["--fasta", "-k", "31", "-s", "8", "--kmv", "--khf", "--hmh"]),
+    ("long_fastq", ["-k", "31", "-s", "8", "--kmv", "--khf", "--hmh"]),
 ])
 def test_out_json_byte_identical(inputs, tmp_path, monkeypatch, name, extra):
     monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
     args = ["sketch", "-f", inputs[name], "-k", "11", "-w", "5", *extra]
     assert jax_cli.main(args + ["-o", str(tmp_path / "jax")]) == 0
     assert torch_cli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
+
+
+def _cli(main, args) -> bytes:
+    """main(args) with sys.stdout captured; returns what went to it."""
+    buf = io.BytesIO()
+    out, sys.stdout = sys.stdout, io.TextIOWrapper(buf)
+    try:
+        assert main(args) == 0
+        sys.stdout.flush()
+    finally:
+        sys.stdout.detach()
+        sys.stdout = out
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("extra", [["-i", "11"], ["-i", "7", "-x", "0.9", "--streamAll",
+                                                  "--kmv", "--khf", "--hmh"]])
+def test_stream_stdout_byte_identical(inputs, tmp_path, monkeypatch, extra):
+    """--stream over the contigs: every interval's snapshot and the final
+    sketch on stdout, the same bytes as hulk_tpu's."""
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    args = ["sketch", "-f", inputs["contigs"], "--fasta", "-k", "11", "-w", "5", "-s", "8",
+            "--stream", *extra]
+    want = _cli(jax_cli.main, args + ["-o", str(tmp_path / "jax")])
+    got = _cli(torch_cli.main, args + ["-o", str(tmp_path / "port"), "--device", "cpu"])
+    assert got == want and got.count(b'"histosketch"') > 3
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
+
+
+def test_resume_between_long_records(tmp_path, monkeypatch):
+    """A run killed after the checkpoint that lies between two long records
+    (records 4 and 5 of 8, -i 2) and resumed over the whole file writes
+    hulk_tpu's out.json of the whole file. The kill is built, as hulk_tpu's
+    tests build it, by a run over the first four records."""
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    rng = np.random.default_rng(41)
+    lens = [300, 100_000, 200, 70_000, 90_000, 5000, 80_000, 400]
+    recs = [bytes(rng.choice(list(b"ACGTN"), p=[0.2475] * 4 + [0.01], size=n).tolist())
+            for n in lens]
+
+    def write(path, rs):
+        path.write_bytes(b"".join(b">c%d\n%s\n" % (i, r) for i, r in enumerate(rs)))
+        return str(path)
+
+    full, head = write(tmp_path / "all.fa", recs), write(tmp_path / "head.fa", recs[:4])
+    ck = str(tmp_path / "ck.npz")
+    args = ["sketch", "--fasta", "-k", "11", "-w", "5", "-s", "8", "-i", "2", "--kmv", "--khf",
+            "--hmh"]
+    assert jax_cli.main(args + ["-f", full, "-o", str(tmp_path / "jax")]) == 0
+    assert torch_cli.main(args + ["-f", head, "-o", str(tmp_path / "head"), "--checkpoint", ck,
+                                  "--device", "cpu"]) == 0
+    assert int(np.load(ck)["seq_count"]) == 4
+    assert torch_cli.main(args + ["-f", full, "-o", str(tmp_path / "port"), "--resume", ck,
+                                  "--device", "cpu"]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
+
+
+@pytest.mark.parametrize("extra", [[], ["-i", "11", "--kmv", "--khf", "--hmh"]])
+def test_sharded_long_contigs_byte_identical(inputs, tmp_path, monkeypatch, extra):
+    """--device cpu,cpu,cpu: long records go to shard 0, short ones are
+    striped over the three; out.json is hulk_tpu's."""
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    args = ["sketch", "-f", inputs["contigs"], "--fasta", "-k", "11", "-w", "5", *extra]
+    assert jax_cli.main(args + ["-o", str(tmp_path / "jax")]) == 0
+    assert torch_cli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu,cpu,cpu"]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
+
+
+@pytest.mark.parametrize("name", ["contigs", "long_fastq"])
+def test_long_reads_skip_host_objects(inputs, tmp_path, monkeypatch, name):
+    """The host spectrum and sketch objects take no hashes: each long
+    record is binned and sketched on the device, and reaches the host only
+    through the stream's drain and merge, as short reads do."""
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    calls = []
+
+    def spy(self, hashes):
+        calls.append((type(self).__name__, len(hashes)))
+
+    for cls in (spectrum.KmerSpectrum, minhash.KMVSketch, minhash.KHFSketch,
+                hyperminhash.HyperMinHash):
+        monkeypatch.setattr(cls, "add_hashes", spy)
+    args = ["sketch", "-f", inputs[name], "-k", "11", "-w", "5", "--kmv", "--khf", "--hmh",
+            *(["--fasta"] if name == "contigs" else [])]
+    assert torch_cli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert calls == []
+    assert jax_cli.main(args + ["-o", str(tmp_path / "jax")]) == 0
     assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
