@@ -102,11 +102,28 @@ Phases, each printing its seconds:
      wall seconds; (11e) sharded_histogram_step over [cuda:0, cuda:0] on one
      [16384, 160] batch equal to the fused step's histogram and count, with
      hulk_jump_hash launched.
+  12. flush step and entry points: (12a) sharded_flush_step without drift
+     on [cuda:0, cuda:0] (2 stripes of 21 slots) over two interval flushes
+     of phase 3's halves (k=21, s=42, 194,481 bins, CMS 7 x 2,000): the CMS
+     bit-equal to the exact host flush's, the bins equal, the weights
+     within rtol 1e-12, two stripes bit-equal to one, device time a flush
+     beside its bound; (12b) with drift (-x 0.9): the two drift kernel
+     entries (the CMS scan, the slot selection) bit-equal to their plain
+     versions on a k=9 histogram and on the first 4,096 live bins of phase
+     3's first half, the whole two-flush run against HistoSketch(decay=0.9)
+     as in 12a with each entry's launches asserted, each entry's device
+     time at full width and on the 4,096 bins beside its bound, the
+     scan's beside the chain of its live bins' multiplies (a bare FP64
+     multiply chain timed at the scan's shape), and the plain versions'
+     time on their 4,096 bins; (12c) entry()'s step on the card
+     against the CPU, on its [64, 128] batch and at [16384, 160], the u8
+     minimizer and hulk_jump_hash once each a call; (12d)
+     dryrun_multichip(2) on the card against [cpu, cpu].
 Then one JSON line of the device stages that have no TPU kernel (the
 flush's candidate stage, one device and striped, the smash matrix, the LSH
-ranking) with device ms and bound, one
+ranking, the no-drift sharded_flush_step) with device ms and bound, one
 JSON line of kernels (every entry, with its launches summed over the driven
-runs of phases 3, 5, 6, 7, 8 and 11), the card's name and power limit,
+runs of phases 3, 5, 6, 7, 8, 11 and 12), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure ends the run with a
 non-zero exit code and no result line. Nothing is written into the
 repository except the gitignored kernel build directory; the inputs and
@@ -176,6 +193,29 @@ LSH_DENSE = (20_000, 200, 2, 0.5)
 LSH_SUBSET = 50
 LSH_TOPK = 64
 RANK_TIMEOUT = 600
+# phase 12's decay ratio (-x) and the live bins over which the plain drift
+# versions run on the full-width histogram
+DRIFT = 0.9
+DRIFT_PREFIX = 4096
+# the drift scan's dependency-chain bound: a thread per CMS counter, each n
+# dependent FP64 multiplies, built with the kernels' flags (phase 1) and
+# timed at the scan's shape in phase 12
+CHAIN_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void chain(long long n, double dw, int threads, double* out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= threads) return;
+  double c = 1.0 + t;
+#pragma unroll 16
+  for (long long i = 0; i < n; ++i) c = __dmul_rn(c, dw);
+  out[t] = c;
+}
+extern "C" int multiply_chain(long long n, double dw, int threads, void* out, void* stream) {
+  chain<<<(threads + 63) / 64, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, dw, threads, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 @contextlib.contextmanager
@@ -786,16 +826,16 @@ def check_sketch(path: str, s: int, k: int = 21, algos=("histosketch",)) -> None
 
 
 def reset_launches() -> None:
-    from hulk_tpu_torch.ops import jump_cuda, minimizer_cuda
+    from hulk_tpu_torch.ops import flush_drift_cuda, jump_cuda, minimizer_cuda
 
-    for d in (minimizer_cuda.launches, jump_cuda.launches):
+    for d in (minimizer_cuda.launches, jump_cuda.launches, flush_drift_cuda.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_launches() -> dict:
-    from hulk_tpu_torch.ops import jump_cuda, minimizer_cuda
+    from hulk_tpu_torch.ops import flush_drift_cuda, jump_cuda, minimizer_cuda
 
-    return {**minimizer_cuda.launches, **jump_cuda.launches}
+    return {**minimizer_cuda.launches, **jump_cuda.launches, **flush_drift_cuda.launches}
 
 
 def drive(tag: str, src: str, tmp: str, extra=()) -> tuple[float, int, dict]:
@@ -1094,14 +1134,25 @@ def generate_files(tmp: str, first: str) -> list[str]:
 def fq_histogram(fq: str, device):
     """The int32 histogram of fq's reads (k=21, w=9) on the device, as one
     interval's flush gets it."""
+    return fq_histograms(fq, device)[0]
+
+
+def fq_histograms(fq: str, device, cut: int | None = None) -> list:
+    """The int32 histograms (k=21, w=9) on the device of each `cut` reads of
+    fq in turn (cut divides the file's reads), as the interval flushes get
+    them; one histogram of all of them without a cut."""
     from hulk_tpu_torch.stream.fastq import batch_reads_native
     from hulk_tpu_torch.stream.pipeline import SketchConfig, _DeviceStream
 
     cfg = SketchConfig(kmer_size=21, window_size=9, sketch_size=42, device="cuda")
     dev = _DeviceStream(cfg, NBINS, device)
-    for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), raw=True):
+    hists = []
+    for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), cut_every=cut,
+                                raw=True):
         dev.feed(b)
-    return dev.take_hist()
+        if cut and b.reads_in_file_end % cut == 0:
+            hists.append(dev.take_hist())
+    return hists if cut else [dev.take_hist()]
 
 
 def flush_stage_bound(depth: int, width: int, s: int = 42) -> tuple[float, str]:
@@ -1825,6 +1876,321 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     return [stage]
 
 
+def host_flushes(hists: list, tables, decay: float):
+    """The exact host flush (HistoSketch.add_elements, native) of each
+    histogram in turn, the CMS carried."""
+    import numpy as np
+
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+
+    hs = HistoSketch(21, 42, NBINS, decay, tables=tables)
+    for h in hists:
+        h = h.cpu().numpy().astype(np.float64)
+        ids = np.nonzero(h)[0].astype(np.int64)
+        hs.add_elements(ids, h[ids])
+    return hs
+
+
+def check_against_host(tag: str, state, hs) -> None:
+    """The step's (cms, sketch, weights) against the host flush: the CMS
+    bit-equal, the bins equal, the weights within rtol 1e-12."""
+    import numpy as np
+
+    cms, sk, w = (x.cpu().numpy() for x in state)
+    if not np.array_equal(cms.view(np.uint64), hs.cms.sketch.view(np.uint64)):
+        raise SystemExit(f"FAIL {tag}: the CMS differs from the host flush's in "
+                         f"{int((cms != hs.cms.sketch).sum())} counters")
+    if not np.array_equal(sk.astype(np.uint64), hs.sketch):
+        raise SystemExit(f"FAIL {tag}: {int((sk.astype(np.uint64) != hs.sketch).sum())} "
+                         f"sketch bins differ from the host flush's")
+    if not np.allclose(w, hs.sketch_weights, rtol=1e-12, atol=0.0):
+        raise SystemExit(f"FAIL {tag}: weights beyond rtol 1e-12 of the host flush's")
+
+
+def start_chain_build(tmp: str) -> tuple:
+    """Start nvcc on CHAIN_SOURCE (beside the kernels' own build); returns
+    the process and the library it writes."""
+    from hulk_tpu_torch.ops import _build
+
+    src, so = os.path.join(tmp, "chain.cu"), os.path.join(tmp, "libchain.so")
+    with open(src, "w") as fh:
+        fh.write(CHAIN_SOURCE)
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
+
+
+def multiply_chain_ms(chain_build, n: int, threads: int, dw: float) -> float:
+    """Device ms of `threads` chains of n dependent FP64 multiplies (64
+    threads a block): the least time of the drift scan's n live bins."""
+    import ctypes
+
+    import torch
+
+    proc, so = chain_build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise SystemExit(f"FAIL nvcc on the multiply chain:\n{log}")
+    fn = ctypes.CDLL(so).multiply_chain
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    out = torch.empty(threads, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(n, dw, threads, out.data_ptr(), stream) != 0:
+            raise SystemExit("FAIL the multiply chain did not launch")
+
+    return device_ms(launch, reps=10, warm=2)
+
+
+def drift_bounds(n: int, s: int, depth: int, width: int) -> dict:
+    """The drift entries' least times at n live bins. The scan: the counts,
+    the int64 row table and the estimates once, the CMS read and written;
+    about 2 FP64 operations a (counter, bin). The selection: Aka [s, n]
+    and the bins read once; one FP64 compare a (slot, bin)."""
+    return {"cms_drift_scan": bound(8 * n + 8 * depth * n + 8 * n + 2 * 8 * depth * width,
+                                    2 * n * depth * width, FP64_OPS_PER_S),
+            "drift_select": bound(8 * s * n + 8 * n + 4 * 8 * s, s * n, FP64_OPS_PER_S)}
+
+
+def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None) -> dict:
+    """Each drift entry's device ms a launch through its C entry, from an
+    empty CMS and sketch, over the live bins of hist (its first `prefix`)."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.parallel.mesh import _aka
+    from hulk_tpu_torch.sketch.countmin import cms_shape
+
+    ids = torch.nonzero(hist).flatten()[:prefix]
+    n, (depth, width), s = ids.numel(), cms_shape(), tables.c.shape[0]
+    freqs, rows = hist[ids].double(), rb[:, ids].contiguous()
+    cms0 = torch.zeros(depth, width, dtype=torch.float64, device=dev)
+    cms_out = torch.empty_like(cms0)
+    est_rows = torch.empty(depth, n, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    scan = fdc.entry("hulk_cms_drift_scan")
+    scan_ms = device_ms(lambda: scan(freqs.data_ptr(), rows.data_ptr(), n, cms0.data_ptr(),
+                                     cms_out.data_ptr(), depth, width, dw, est_rows.data_ptr(),
+                                     stream), reps=10, warm=2)
+    aka = _aka(est_rows.amin(0), torch.ones_like(ids, dtype=torch.bool), *(
+        torch.tensor(np.ascontiguousarray(t[:, ids.cpu().numpy()]), device=dev)
+        for t in (tables.c, tables.b, tables.exp_r)))
+    sk0 = torch.zeros(s, dtype=torch.int64, device=dev)
+    w0 = torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=dev)
+    sk_out, w_out = torch.empty_like(sk0), torch.empty_like(w0)
+    select = fdc.entry("hulk_drift_select")
+    select_ms = device_ms(lambda: select(aka.data_ptr(), ids.data_ptr(), n, s, dw,
+                                         sk0.data_ptr(), w0.data_ptr(), sk_out.data_ptr(),
+                                         w_out.data_ptr(), stream), reps=10, warm=2)
+    return {"cms_drift_scan": scan_ms, "drift_select": select_ms}
+
+
+def drift_checks(dev, case: str, hist, tables, row_bins, dw: float,
+                 prefix: int | None = None) -> dict:
+    """The two drift entries against their plain versions on the card, from
+    an empty CMS and sketch, over the live bins of hist (its first `prefix`
+    of them): the CMS, the estimates, the bins and the weights bit-equal.
+    Returns the plain versions' milliseconds (CUDA events around one call)
+    and the largest differences (0)."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.ops import flush_drift as fd
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.parallel.mesh import _aka
+    from hulk_tpu_torch.sketch.countmin import cms_shape
+
+    ids = torch.nonzero(hist).flatten()[:prefix]
+    freqs, rows = hist[ids].double(), row_bins[:, ids].contiguous()
+    cms = torch.zeros(*cms_shape(), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    cms_p, esti_p = fd.cms_drift_scan_torch(freqs, rows, cms, dw)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    cms_k, esti_k = fdc.cms_drift_scan_cuda(freqs, rows, cms, dw)
+    check_equal(f"cms_drift_scan CMS, {case}", cms_k, cms_p)
+    check_equal(f"cms_drift_scan estimates, {case}", esti_k, esti_p)
+    c, b, exp_r = (torch.tensor(np.ascontiguousarray(t[:, ids.cpu().numpy()]), device=dev)
+                   for t in (tables.c, tables.b, tables.exp_r))
+    aka = _aka(esti_p, torch.ones_like(ids, dtype=torch.bool), c, b, exp_r)
+    s = aka.shape[0]
+    sk = torch.zeros(s, dtype=torch.int64, device=dev)
+    w = torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    want = fd.drift_select_torch(aka, ids, sk, w, dw)
+    torch.cuda.synchronize()
+    select_ms = (time.perf_counter() - t0) * 1e3
+    got = fdc.drift_select_cuda(aka, ids, sk, w, dw)
+    check_equal(f"drift_select bins, {case}", got[0], want[0])
+    check_equal(f"drift_select weights, {case}", got[1], want[1])
+    print(f"drift entries on {case} ({ids.numel()} live bins, s={s}): bit-equal to the "
+          f"plain versions (plain scan {scan_ms:.1f} ms, plain selection {select_ms:.1f} ms, "
+          f"one call each)", flush=True)
+    return dict(n=ids.numel(), scan_ms=scan_ms, select_ms=select_ms,
+                err=max(max_abs_err(cms_k, cms_p), max_abs_err(esti_k, esti_p),
+                        max_abs_err(got[1], want[1])))
+
+
+def flush_step_phase(fq: str, dev, path_launches: dict,
+                     chain_build) -> tuple[list, list]:
+    """Phase 12: sharded_flush_step at full width (k=21, s=42, 194,481 bins,
+    CMS 7 x 2,000) over two interval flushes of phase 3's halves, without
+    drift (12a) and with -x 0.9 through the drift kernels (12b); entry()'s
+    step on the card (12c); dryrun_multichip(2) on the card (12d), each
+    against the CPU. Returns the device stages and the drift entries'
+    kernel rows."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch import entry as entry_mod
+    from hulk_tpu_torch.hashes.cws import get_cws_tables
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table, cms_shape
+
+    cpu = torch.device("cpu")
+    halves = fq_histograms(fq, dev, READS // 2)
+    tables = get_cws_tables(42, NBINS)
+    depth, width = cms_shape()
+    rb = torch.from_numpy(cms_row_bins_table(NBINS, depth, width).astype(np.int64)).to(dev)
+    live = [int((h != 0).sum()) for h in halves]
+
+    def empty():
+        return (torch.zeros(depth, width, dtype=torch.float64, device=dev),
+                torch.zeros(42, dtype=torch.int64, device=dev),
+                torch.full((42,), np.finfo(np.float64).max, dtype=torch.float64, device=dev))
+
+    def flushes(devs, dw: float, drift: bool):
+        step = mesh.sharded_flush_step(devs, dw, drift, depth, width)
+        stripes = mesh.shard_tables(devs, tables)
+        state = empty()
+        for h in halves:
+            state = step(h, rb, *state, stripes)
+        torch.cuda.synchronize()
+        return state, step, stripes
+
+    # 12a: no drift, 2 stripes against 1 and against the host flush
+    reset_launches()
+    two, step2, stripes2 = flushes([dev, dev], 0.0, False)
+    path_launches["12a"] = read_launches()
+    one, _, _ = flushes([dev], 0.0, False)
+    for x, y, name in zip(two, one, ("cms", "sketch", "weights")):
+        check_equal(f"12a two stripes' {name} against one stripe's",
+                    x.view(torch.int64) if x.is_floating_point() else x,
+                    y.view(torch.int64) if y.is_floating_point() else y)
+    check_against_host("12a sharded_flush_step, no drift", two, host_flushes(halves, tables, 1.0))
+    stage_ms = profiled_device_ms(lambda: step2(halves[0], rb, *empty(), stripes2),
+                                  tag="sharded_flush_step, no drift, 2 stripes")
+    b12 = flush_stage_bound(depth, width)
+    print(f"12a sharded_flush_step, no drift, on [{dev}, {dev}]: two flushes of phase 3's "
+          f"halves ({live[0]} and {live[1]} bins used of {NBINS}, s=42): CMS bit-equal to "
+          f"the host flush's, bins equal, weights within rtol 1e-12; 2 stripes bit-equal "
+          f"to 1; {stage_ms:.4f} ms device time a flush (bound {b12[0]:.4f} ms by {b12[1]})",
+          flush=True)
+    stage = dict(name="sharded_flush_step", source="hulk_tpu_torch/parallel/mesh.py",
+                 counterpart="hulk_tpu/parallel/mesh.py:237-269", ms=stage_ms,
+                 bound_ms=b12[0], bound_by=b12[1], launches=2,
+                 shape=f"nbins={NBINS} s=42 depth={depth} width={width}, 2 stripes")
+
+    # 12b: drift, the entries against their plain versions, then the flush
+    dw = float(go_exp(-DRIFT))
+    nbins9 = 9 ** 4
+    rng = np.random.default_rng(SEED)
+    hist9 = torch.from_numpy(np.where(rng.random(nbins9) < 0.5, rng.integers(1, 300, nbins9),
+                                      0).astype(np.int32)).to(dev)
+    rb9 = torch.from_numpy(cms_row_bins_table(nbins9, depth, width).astype(np.int64)).to(dev)
+    drift_checks(dev, "a k=9 histogram", hist9, get_cws_tables(42, nbins9), rb9, dw)
+    pre = drift_checks(dev, f"the first {DRIFT_PREFIX} live bins of phase 3's first half",
+                       halves[0], tables, rb, dw, DRIFT_PREFIX)
+    reset_launches()
+    drifted, step_d, stripes_d = flushes([dev, dev], dw, True)
+    path_launches["12b"] = counts = read_launches()
+    if counts["cms_drift_scan"] != 2 or counts["drift_select"] != 4:
+        raise SystemExit(f"FAIL 12b: launches {counts}, expected the scan once a flush and "
+                         f"the selection once a (flush, stripe)")
+    check_against_host("12b sharded_flush_step, -x 0.9", drifted,
+                       host_flushes(halves, tables, DRIFT))
+    t0 = time.perf_counter()
+    step_d(halves[0], rb, *empty(), stripes_d)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # each entry's device time by its C entry at the first flush's shape and
+    # on the plain versions' prefix; the scan's chain of multiplies
+    n = live[0]
+    full = drift_entry_ms(dev, halves[0], tables, rb, dw)
+    at_pre = drift_entry_ms(dev, halves[0], tables, rb, dw, DRIFT_PREFIX)
+    bounds = drift_bounds(n, 42, depth, width)
+    chain_ms = multiply_chain_ms(chain_build, n, depth * width, dw)
+    print(f"12b sharded_flush_step, -x 0.9, on [{dev}, {dev}]: two flushes, CMS bit-equal to "
+          f"the host flush's (HistoSketch(decay=0.9)), bins equal, weights within rtol "
+          f"1e-12; launches {counts}; one flush {wall_ms:.3f} ms wall", flush=True)
+    print(f"multiply chain: {depth * width} threads of {n} dependent FP64 multiplies, "
+          f"{chain_ms:.4f} ms device ({1e6 * chain_ms / n:.3f} ns a step)", flush=True)
+    rows_out = []
+    for name, entry, plain_ms in (("cms_drift_scan", "hulk_cms_drift_scan", pre["scan_ms"]),
+                                  ("drift_select", "hulk_drift_select", pre["select_ms"])):
+        (bd, by), ms = bounds[name], full[name]
+        chain = dict(chain_bound_ms=chain_ms, binds="chain" if chain_ms > bd else by) \
+            if name == "cms_drift_scan" else {}
+        binding = f", the chain {chain_ms:.4f} ms ({100 * chain_ms / ms:.1f}%)" if chain else ""
+        print(f"{name} ({entry}) n={n} live bins, s=42: device {ms:.4f} ms a launch "
+              f"({1e6 * ms / n:.2f} ns a live bin), bound {bd:.4f} ms ({by}, "
+              f"{100 * bd / ms:.1f}%){binding}; on the first {pre['n']} live bins "
+              f"{at_pre[name]:.4f} ms, plain {plain_ms:.1f} ms ({plain_ms * n / pre['n']:.1f} "
+              f"ms scaled to {n} bins)", flush=True)
+        rows_out.append(dict(
+            name=name, route="cuda", source=fdc.SOURCE,
+            replaces="hulk_tpu/parallel/mesh.py:271-296 (lax.scan, no Pallas)", entry=entry,
+            counter=name, max_abs_err=pre["err"], bit_equal=True, ms=ms, plain_ms=plain_ms,
+            plain_shape=f"the first {pre['n']} live bins of phase 3's first half, one call",
+            ms_at_plain_shape=at_pre[name], bound_ms=bd, bound_by=by, **chain,
+            library_ms=None))
+
+    # 12c: entry()'s step on the card against the CPU, then at the
+    # production batch
+    totals = dict.fromkeys(read_launches(), 0)
+    fn, (hist0, codes0, lengths0) = entry_mod.entry(dev)
+    big = entry_mod.example_batch(*PRODUCTION[:2])
+    for codes, lengths in ((codes0, lengths0), (big.codes, big.lengths)):
+        r, l = codes.shape
+        args = (torch.zeros_like(hist0), torch.as_tensor(codes).to(dev),
+                torch.as_tensor(lengths).to(dev))
+        cargs = tuple(a.cpu() for a in args)
+        reset_launches()
+        hist, count = fn(*args)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if counts["minimizer_window"] != 1 or counts["jump_hash"] != 1 \
+                or sum(counts.values()) != 2:
+            raise SystemExit(f"FAIL 12c: launches {counts}, expected the u8 minimizer and "
+                             f"hulk_jump_hash once each")
+        totals = {key: totals[key] + counts[key] for key in totals}
+        chist, ccount = fn(*cargs)
+        if not torch.equal(hist.cpu(), chist) or int(count) != int(ccount):
+            raise SystemExit(f"FAIL 12c: entry()'s fn on [{r}, {l}] differs card vs CPU")
+        print(f"12c entry()'s fn on [{r}, {l}]: histogram and count ({int(count)}) equal card "
+              f"vs CPU; launches {counts}", flush=True)
+    path_launches["12c"] = totals
+
+    # 12d: dryrun_multichip(2) on the card against the CPU named twice
+    reset_launches()
+    got = entry_mod.dryrun_multichip(2)
+    path_launches["12d"] = read_launches()
+    want = entry_mod.dryrun_multichip(2, devices=[cpu, cpu])
+    if (got.count != want.count or not np.array_equal(got.sketch, want.sketch)
+            or not np.allclose(got.weights, want.weights, rtol=1e-12, atol=0.0)
+            or got.result.hulk_data.to_json_bytes() != want.result.hulk_data.to_json_bytes()):
+        raise SystemExit("FAIL 12d: dryrun_multichip(2) differs card vs CPU")
+    print(f"12d dryrun_multichip(2) on {[str(d) for d in got.devices]}: count ({got.count}), "
+          f"flush bins, weights (rtol 1e-12) and the pipeline's out.json equal to "
+          f"[cpu, cpu]'s; launches {path_launches['12d']}", flush=True)
+    return [stage], rows_out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hulk_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1854,6 +2220,7 @@ def main() -> int:
                   f"CUDA {torch.version.cuda}", flush=True)
             smi = nvidia_smi()
             print(f"nvidia-smi: {smi}", flush=True)
+            chain_build = start_chain_build(tmp)
             _build.load()
             if _build.build_report is None:
                 print("build kernels (nvcc): library was current", flush=True)
@@ -1980,6 +2347,11 @@ def main() -> int:
 
         with phase("11 sharded sketch (g)"):
             stages += sharded_phase(fq, files, tmp, dev, path_launches, t5)
+
+        with phase("12 flush step and entry points"):
+            more, drift_rows = flush_step_phase(fq, dev, path_launches, chain_build)
+            stages += more
+            rows.update((r["name"], r) for r in drift_rows)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

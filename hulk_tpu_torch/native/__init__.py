@@ -485,7 +485,10 @@ class NativeFastqPacker:
         nt4 = _nt4_table()
         nl = np.flatnonzero(buf == 0x0A)
         starts = np.concatenate([[0], nl[:-1] + 1]) if nl.shape[0] else nl
+        # a line's length without its CR, as the native parser counts it
         raw_len = nl - starts
+        if nl.shape[0]:
+            raw_len = raw_len - ((raw_len > 0) & (buf[np.maximum(nl - 1, 0)] == 0x0D))
         base_phase = int(self.phase[0])
         phases = (base_phase + np.arange(nl.shape[0])) & 3
         long_idx = np.flatnonzero((phases == 1) & (raw_len >= self.cap_len))
@@ -661,7 +664,7 @@ class NativeFastaPacker:
             return True
         # the record ahead of the long one (or after a discarded junk
         # prefix) fits after all: emit a normal single-row pair
-        codes = np.empty((1, self.stride), dtype=np.uint8)
+        codes = np.full((1, self.stride), 5, dtype=np.uint8)  # pad code past L
         codes[0, :L] = total
         out.append((codes, np.array([L], dtype=np.int32)))
         return False

@@ -35,14 +35,18 @@ from __future__ import annotations
 import torch
 
 from hulk_tpu_torch._u64 import I64MAX, SENT, flip, usort
-from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
+from hulk_tpu_torch.hashes.jumphash import jump_hash, jump_hash_torch
 from hulk_tpu_torch.ops.device_sketches import (
     SketchStates,
     hmh_update,
     khf_update,
     kmv_update,
 )
-from hulk_tpu_torch.ops.minimizer import minimizer_window_packed, per_read_distinct
+from hulk_tpu_torch.ops.minimizer import (
+    minimizer_scan,
+    minimizer_window_packed,
+    per_read_distinct,
+)
 
 
 def fused_bits_ok(k: int, r: int) -> bool:
@@ -97,6 +101,21 @@ def ship_group(staged: list, l: int, rmax: int, device: torch.device):
                        pin_memory=device.type == "cuda")
     native.pack_group2(staged, g, r, l, out=host.numpy())
     return host.to(device, non_blocking=True), g, r
+
+
+def sketch_accumulate_step(hist: torch.Tensor, codes: torch.Tensor, lengths: torch.Tensor, *,
+                           k: int, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the driver entry point (hulk_tpu/ops/device_step.py:
+    sketch_accumulate_step, :41-56): hist [nbins] int32 += the binned
+    per-read distinct minimizers of u8 codes [R, L]. The u8 minimizer
+    (hulk_minimizer_window) and per-read distinct values, the jump hash of
+    every lane (hulk_jump_hash), then a scatter-add of the mask, which
+    hulk_tpu leaves to XLA. hist is updated in place (hulk_tpu donates it)
+    and returned with the minimizer count, an int64 []."""
+    vals, mask = minimizer_scan(codes, lengths, k, w)
+    bins = jump_hash(vals.reshape(-1), hist.shape[0])
+    hist.index_add_(0, bins.to(torch.int64), mask.reshape(-1).to(torch.int32))
+    return hist, mask.sum()
 
 
 def bin_scatter_keys_torch(hist: torch.Tensor, skeys: torch.Tensor, vbits: int) -> None:

@@ -1,21 +1,22 @@
 """The devices a process runs on, as a dp and mp "mesh": the per-shard group
 step of the data-parallel stream, the CWS tables striped over sketch slots,
 the no-drift flush's candidate stage (--deviceFlush) on one device or
-striped, and the sharded histogram step.
+striped, the sharded histogram step, and the whole flush as one device
+step over slot stripes, with or without drift (sharded_flush_step).
 
 Counterpart of hulk_tpu/parallel/mesh.py (make_sketch_mesh,
-make_sharded_group_step, sharded_histogram_step,
+make_sharded_group_step, sharded_histogram_step, sharded_flush_step,
 make_device_flush_candidates over the mp axis, shard_tables,
 FLUSH_MARGIN_REL, FLUSH_TOP_T). A mesh here is a list of torch.devices,
 which may name one device more than once: that is how the CPU tests and a
 machine with one card run the sharded paths. Rows (dp) and slots (mp) go to
 the devices in contiguous stripes of ceil(n / D); the stream's shards step
-in threads of their own. The kernels run through
-their wrappers, which launch on the device of their tensors; every other
-stage is plain PyTorch, as hulk_tpu left it to XLA. The shards merge
-exactly (integer sums, bottom-s unions, minima and maxima), so the output
-does not depend on the number of devices. hulk_tpu's sharded_flush_step
-(the mp flush with its drift scan) is not here.
+in threads of their own. The kernels run through their wrappers, which
+launch on the device of their tensors; every other stage is plain
+PyTorch, as hulk_tpu left it to XLA. The shards merge exactly (integer
+sums, bottom-s unions, minima and maxima), and each slot's stripe needs
+only its own tables, so the output does not depend on the number of
+devices.
 """
 from __future__ import annotations
 
@@ -84,15 +85,14 @@ def sharded_group_step(hists: list, counts: list, states: list, shards: list, *,
 
 def sharded_histogram_step(devices: list, nbins: int, k: int, w: int):
     """(codes [R, L] uint8, lengths [R] int32) -> (hist [nbins] int32,
-    count [] int64) on devices[0]: each device's stripe of rows through the
-    minimizer kernel and the jump kernel (hulk_jump_hash), the bins of every
-    reported window minimum added into its own histogram, then the shards
-    summed (hulk_tpu's psum over dp). Like hulk_tpu's, it keeps a value
-    that a read reports twice, where the stream step counts it once, so the
-    two agree only on batches where no read does. The plain versions run
-    on the CPU."""
-    from hulk_tpu_torch.hashes.jumphash import jump_hash
-    from hulk_tpu_torch.ops.minimizer import minimizer_scan
+    count [] int64) on devices[0]: each device's stripe of rows through
+    sketch_accumulate_step (the minimizer kernel and the jump kernel,
+    hulk_jump_hash) into its own histogram, then the shards summed
+    (hulk_tpu's psum over dp). Like hulk_tpu's, it keeps a value that a
+    read reports twice, where the stream step counts it once, so the two
+    agree only on batches where no read does. The plain versions run on the
+    CPU."""
+    from hulk_tpu_torch.ops.device_step import sketch_accumulate_step
 
     def step(codes, lengths):
         codes, lengths = torch.as_tensor(codes), torch.as_tensor(lengths)
@@ -101,12 +101,11 @@ def sharded_histogram_step(devices: list, nbins: int, k: int, w: int):
         for dev, (lo, hi) in zip(devices, stripes(lengths.shape[0], len(devices))):
             if lo == hi:
                 continue
-            vals, mask = minimizer_scan(codes[lo:hi].to(dev), lengths[lo:hi].to(dev), k, w)
-            bins = jump_hash(vals.reshape(-1), nbins)
-            local = torch.zeros(nbins, dtype=torch.int32, device=dev)
-            local.index_add_(0, bins.to(torch.int64), mask.reshape(-1).to(torch.int32))
+            local, n = sketch_accumulate_step(
+                torch.zeros(nbins, dtype=torch.int32, device=dev), codes[lo:hi].to(dev),
+                lengths[lo:hi].to(dev), k=k, w=w)
             hist += local.to(devices[0])
-            count += mask.sum().to(devices[0])
+            count += n.to(devices[0])
         return hist, count
 
     return step
@@ -148,13 +147,19 @@ def _estimates(hist, row_bins, cms):
     return torch.stack(rows), torch.stack(estis).amin(0), freqs != 0.0
 
 
+def _aka(esti, live, c, b, exp_r):
+    """Aka = c / (exp(log(esti) - b) * exp_r) of every (slot, bin) of a
+    stripe's tables, +inf where the bin is not live."""
+    lf = torch.log(torch.where(live, esti, 1.0))
+    aka = c / (torch.exp(lf[None, :] - b) * exp_r)
+    return torch.where(live[None, :], aka, float("inf"))
+
+
 def _slot_candidates(esti, live, c, b, exp_r, top_t: int):
     """One stripe of slots: the top_t smallest Aka of each slot (indices)
     and its margin count. Every slot's row depends on that slot's tables
     alone, so a stripe gives the rows the whole table gives."""
-    lf = torch.log(torch.where(live, esti, 1.0))
-    aka = c / (torch.exp(lf[None, :] - b) * exp_r)
-    aka = torch.where(live[None, :], aka, float("inf"))
+    aka = _aka(esti, live, c, b, exp_r)
     top, idx = torch.topk(aka, top_t, dim=1, largest=False, sorted=True)
     best = top[:, 0]
     # sign-safe: best + |best| * rel, plus a tiny term for best == 0
@@ -199,3 +204,70 @@ def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH
     ties.
     """
     return striped_flush_candidates(hist, row_bins, cms, [(c, b, exp_r)], top_t)
+
+
+def sharded_flush_step(devices: list, decay_weight: float, apply_drift: bool, depth: int,
+                       width: int):
+    """The histosketch flush as one device step over slot stripes
+    (hulk_tpu/parallel/mesh.py:196-315): the histogram and the CMS on
+    devices[0], the sketch, the weights and the CWS tables striped over
+    `devices` by slots. Returns a step
+
+        (hist [nbins] int32 or f64, row_bins [depth, nbins] int64,
+         cms [depth, width] f64, sketch [s] int64, weights [s] f64,
+         table_stripes: shard_tables(devices, tables))
+        -> (cms, sketch, weights) on devices[0].
+
+    The CMS is an explicit carry, so interval flushes compose. Without
+    drift, the CMS update and the estimates are the exact grouped prefix
+    sums (_estimates); each stripe's device takes its slots' Aka, keeps
+    the first index of each slot's minimum (the reference's
+    replace-if-strictly-smaller scan in ascending bin order) and replaces
+    a slot where that Aka is below its weight. With drift (decay_weight =
+    exp(-decay) in (0, 1)), the CMS scan (ops/flush_drift.py:
+    cms_drift_scan) gives the live bins' estimates on devices[0], and each
+    stripe runs its slots' order-dependent selection (drift_select) on its
+    device. Both use the device's exp/log for Aka, as hulk_tpu's step
+    uses XLA's: the bins agree with the exact host flush and the weights
+    within a few ULP (tests/test_torch_flush_step.py). Stripes join in
+    slot order, bit-equal for any number of them. No production path
+    selects this step: the stream flushes on the host or through the
+    candidate stage (pipeline._DeviceFlusher), as in hulk_tpu."""
+    from hulk_tpu_torch.ops.flush_drift import cms_drift_scan, drift_select
+
+    home = devices[0]
+
+    def step(hist, row_bins, cms, sketch, weights, table_stripes):
+        if len(table_stripes) != len(devices):
+            raise ValueError(f"{len(table_stripes)} table stripes for {len(devices)} devices")
+        hist, row_bins, cms = hist.to(home), row_bins.to(home), cms.to(home)
+        if apply_drift:
+            freqs = hist.double()
+            ids = torch.nonzero(freqs).flatten()
+            cms_out, esti = cms_drift_scan(freqs[ids], row_bins[:, ids].contiguous(), cms,
+                                           decay_weight)
+        else:
+            cms_out, esti, live = _estimates(hist, row_bins, cms)
+        sketches, weights_out, lo = [], [], 0
+        for c, b, exp_r in table_stripes:
+            hi = lo + c.shape[0]
+            dev = c.device
+            sk, wt = sketch[lo:hi].to(dev), weights[lo:hi].to(dev)
+            if hi > lo and apply_drift:
+                i = ids.to(dev)
+                aka = _aka(esti.to(dev), torch.ones_like(i, dtype=torch.bool), c[:, i],
+                           b[:, i], exp_r[:, i]).contiguous()
+                sk, wt = drift_select(aka, i, sk.contiguous(), wt.contiguous(), decay_weight)
+            elif hi > lo:
+                aka = _aka(esti.to(dev), live.to(dev), c, b, exp_r)
+                best = torch.argmin(aka, 1)  # the first index of the minimum
+                best_aka = aka.gather(1, best[:, None])[:, 0]
+                better = best_aka < wt
+                sk = torch.where(better, best, sk)
+                wt = torch.where(better, best_aka, wt)
+            sketches.append(sk.to(home))
+            weights_out.append(wt.to(home))
+            lo = hi
+        return cms_out, torch.cat(sketches), torch.cat(weights_out)
+
+    return step

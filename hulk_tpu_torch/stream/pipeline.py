@@ -274,8 +274,8 @@ class _ShardedDeviceStream(_DeviceStream):
     shard_states[0] are the one-device stream's own). The shards merge
     exactly where the one-device stream hands its state over (take_hist,
     drain_into, collect, minimizer_total), so the rest of the pipeline does
-    not change. The shards step one after another in the streaming thread
-    (one host sync a batch each)."""
+    not change. The shards pack, copy and step in a thread each
+    (mesh.sharded_group_step), each with its one host sync a batch."""
 
     def __init__(self, cfg: SketchConfig, nbins: int, devices: list):
         super().__init__(cfg, nbins, devices[0])

@@ -434,3 +434,116 @@ def test_sharded_histogram_step_card_matches_cpu():
     cpu = mesh.sharded_histogram_step([torch.device("cpu")], 9 ** 4, 9, 5)(codes, lengths)
     assert jump_cuda.launches["jump_hash"] == before + 2
     assert torch.equal(card[0].cpu(), cpu[0]) and int(card[1]) == int(cpu[1]) > 0
+
+
+def _drift_inputs(seed: int, nbins: int, live: float):
+    """A histogram with a `live` share of bins used (counts 1-299), its
+    live ids, counts and CMS rows, a CMS carried in, and dw = Go's
+    exp(-0.9)."""
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table, cms_shape
+
+    rng = np.random.default_rng(seed)
+    depth, width = cms_shape()
+    hist = np.where(rng.random(nbins) < live, rng.integers(1, 300, nbins), 0)
+    ids = np.nonzero(hist)[0]
+    cms = np.where(rng.random((depth, width)) < 0.3, rng.integers(1, 50, (depth, width)), 0)
+    rows = np.ascontiguousarray(cms_row_bins_table(nbins, depth, width)[:, ids], dtype=np.int64)
+    return (torch.from_numpy(hist[ids].astype(np.float64)), torch.from_numpy(rows),
+            torch.from_numpy(cms.astype(np.float64)), torch.from_numpy(ids.astype(np.int64)),
+            float(go_exp(-0.9)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins,live", [(9 ** 4, 0.5), (9 ** 4, 1.0), (21 ** 4, 0.01),
+                                        (9 ** 4, 0.01), (9 ** 4, 0.0)])
+def test_drift_kernels_match_plain(nbins, live):
+    """hulk_cms_drift_scan and hulk_drift_select against their plain
+    versions on the card: the CMS, the estimates, the sketch and the weights
+    bit-equal, from a half-filled sketch."""
+    from hulk_tpu_torch.ops import flush_drift as fd
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+
+    dev = _card()
+    freqs, rows, cms, ids, dw = (x.to(dev) if torch.is_tensor(x) else x
+                                 for x in _drift_inputs(nbins, nbins, live))
+    cms_k, esti_k = fdc.cms_drift_scan_cuda(freqs, rows, cms, dw)
+    cms_p, esti_p = fd.cms_drift_scan_torch(freqs, rows, cms, dw)
+    assert torch.equal(cms_k, cms_p) and torch.equal(esti_k, esti_p)
+    rng = np.random.default_rng(nbins)
+    s = 42
+    aka = torch.from_numpy(rng.exponential(size=(s, ids.shape[0])) / esti_p.cpu().numpy()).to(dev)
+    sk = torch.from_numpy(np.where(rng.random(s) < 0.5, rng.integers(0, nbins, s), 0)).to(dev)
+    w = torch.from_numpy(np.where(sk.cpu().numpy() > 0, rng.random(s) * 1e-3,
+                                  np.finfo(np.float64).max)).to(dev)
+    got = fdc.drift_select_cuda(aka, ids, sk, w, dw)
+    want = fd.drift_select_torch(aka, ids, sk, w, dw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drift", [False, True])
+def test_sharded_flush_step_card_matches_cpu(drift):
+    """sharded_flush_step over [card, card] against [cpu, cpu] on a k=9
+    histogram, two flushes: the CMS and the bins equal, the weights within
+    rtol 1e-12 (the card's exp/log against the CPU's)."""
+    from hulk_tpu_torch.hashes.cws import build_cws_tables
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table, cms_shape
+
+    dev, cpu = _card(), torch.device("cpu")
+    nbins, s = 9 ** 4, 8
+    depth, width = cms_shape()
+    tables = build_cws_tables(s, nbins)
+    rb = torch.from_numpy(cms_row_bins_table(nbins, depth, width).astype(np.int64))
+    rng = np.random.default_rng(5)
+    hists = [torch.from_numpy(np.where(rng.random(nbins) < 0.3, rng.integers(1, 300, nbins),
+                                       0).astype(np.int32)) for _ in range(2)]
+    dw = float(go_exp(-0.9)) if drift else 0.0
+    outs = []
+    for d in (dev, cpu):
+        step = mesh.sharded_flush_step([d, d], dw, drift, depth, width)
+        stripes = mesh.shard_tables([d, d], tables)
+        state = (torch.zeros(depth, width, dtype=torch.float64, device=d),
+                 torch.zeros(s, dtype=torch.int64, device=d),
+                 torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=d))
+        for h in hists:
+            state = step(h.to(d), rb.to(d), *state, stripes)
+        outs.append([x.cpu() for x in state])
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    np.testing.assert_allclose(outs[0][2].numpy(), outs[1][2].numpy(), rtol=1e-12)
+
+
+@pytest.mark.gpu
+def test_entry_card_matches_cpu():
+    """entry()'s fn on the card (u8 minimizer and hulk_jump_hash once each)
+    against the same fn on the CPU."""
+    from hulk_tpu_torch.entry import entry
+    from hulk_tpu_torch.ops import jump_cuda, minimizer_cuda
+
+    _card()
+    fn, args = entry()
+    before = (minimizer_cuda.launches["minimizer_window"], jump_cuda.launches["jump_hash"])
+    hist, count = fn(*args)
+    assert (minimizer_cuda.launches["minimizer_window"],
+            jump_cuda.launches["jump_hash"]) == (before[0] + 1, before[1] + 1)
+    cfn, cargs = entry("cpu")
+    chist, ccount = cfn(*cargs)
+    assert torch.equal(hist.cpu(), chist) and int(count) == int(ccount) > 0
+
+
+@pytest.mark.gpu
+def test_drift_select_kernel_ties_at_the_threshold():
+    """An Aka equal to weight / dw does not replace, one below it does (dw =
+    0.5, exact thresholds), as in the plain version."""
+    from hulk_tpu_torch.ops import flush_drift as fd
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+
+    dev = _card()
+    aka = torch.tensor([[1.0, 2.0, 3.0], [1.0, 1.5, 2.5]], dtype=torch.float64, device=dev)
+    args = (torch.tensor([10, 11, 12], device=dev), torch.zeros(2, dtype=torch.int64, device=dev),
+            torch.full((2,), np.finfo(np.float64).max, dtype=torch.float64, device=dev), 0.5)
+    got, want = fdc.drift_select_cuda(aka, *args), fd.drift_select_torch(aka, *args)
+    assert got[0].tolist() == want[0].tolist() == [10, 12]
+    assert got[1].tolist() == want[1].tolist() == [1.0, 2.5]

@@ -31,7 +31,9 @@ for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
 sys.meta_path.insert(0, Refuse())
 import hulk_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hulk_tpu_torch.__path__, "hulk_tpu_torch.")]
-for want in ("hulk_tpu_torch.parallel.mesh", "hulk_tpu_torch.stream.watchdog"):
+for want in ("hulk_tpu_torch.parallel.mesh", "hulk_tpu_torch.stream.watchdog",
+             "hulk_tpu_torch.entry", "hulk_tpu_torch.ops.flush_drift",
+             "hulk_tpu_torch.ops.flush_drift_cuda"):
     assert want in names, want
 for n in names:
     if n != "hulk_tpu_torch.__main__":  # runs the CLI when imported

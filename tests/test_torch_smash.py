@@ -12,6 +12,7 @@ import csv
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -224,3 +225,21 @@ def test_profiling_writes_trace(piles, tmp_path, monkeypatch, sub):
     assert len(traces) == 1
     with open(tmp_path / "hulk-profile" / traces[0]) as fh:
         assert json.load(fh)["traceEvents"]
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+
+@pytest.mark.parametrize("metric,prefix", [("weightedjaccard", "wj"), ("jaccard", "jac")])
+def test_smash_matches_pinned_golden(metric, prefix, tmp_path, monkeypatch):
+    """BASELINE config 2: `smash` of the three pinned sketches in
+    tests/golden, byte-equal to the pinned CSV (no /root/reference)."""
+    import shutil
+
+    for f in ("fixture-default.json", "part1.json", "part2.json"):
+        shutil.copy(os.path.join(GOLDEN, f), tmp_path / f)
+    monkeypatch.chdir(tmp_path)
+    assert torch_cli.main(["smash", "-d", ".", "-m", metric, "-o", prefix,
+                           "--device", "cpu"]) == 0
+    with open(os.path.join(GOLDEN, f"{prefix}.hulk-matrix.csv"), "rb") as fh:
+        assert (tmp_path / f"{prefix}.hulk-matrix.csv").read_bytes() == fh.read()
