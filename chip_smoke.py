@@ -17,12 +17,20 @@ Phases, each printing its seconds:
      record scan runs on records of 65,536 and 200,000 bases with 1% N at
      k=21/w=9 and k=31/w=2, also at a cap of 65,536 (cont chunks), its
      sorted run heads against the plain version's; the dedup form with its
-     count on a record's sorted run heads. Each entry's device time at the
-     shape of its path (50 launches queued through its C entry, one event
-     pair) beside its bound, the plain version's time (CUDA events around
-     one call, median of 20 after 3 warm-ups), and the values entry's
-     launch floor. Then the KMV, KHF and HMH updates' time a batch (plain
-     PyTorch, CUDA events around one call).
+     count on a record's sorted run heads; the two-sort step's values entry
+     on its whole SENT-tailed buffer with the device count. The jump loop's
+     reciprocal seed checked over all 2^31 divisors against the bound its
+     proof assumes, and the loop's boundary keys (adversarial, and quotients
+     within 2^-20 of an integer) through all four jump entries; the
+     iterations that took the loop's exact step (its counting form). Each
+     entry's device time at the shape of its path (50 launches queued
+     through its C entry, one event pair; hulk_jump_hash and the u8 entry at
+     entry()'s [16384, 160] batch) beside its bound, the plain version's
+     time (CUDA events around one call, median of 20 after 3 warm-ups), and
+     the values entry's launch floor. Then the KMV, KHF and HMH updates'
+     time a batch (plain PyTorch, CUDA events around one call), and the
+     two-sort step's binning and sketch feed on the whole buffer against
+     the live prefix after a count read.
   3. end to end: `sketch` through hulk_tpu_torch.cli.main on 1,000,000
      synthetic 150 bp reads (gzip FASTQ, seed 0) at k=21, w=9, s=42, with
      every entry's launch count set to 0 just before and read just after;
@@ -40,8 +48,9 @@ Phases, each printing its seconds:
      once; the first 50,000 reads byte-identical on card and CPU.
   6. two-sort: `sketch -k 31 -w 9 -s 42` on the same reads (R = 2048,
      923,521 bins): the packed minimizer and the values binning entry once
-     per batch, the fused binning pass never; profiled once; the first
-     50,000 reads byte-identical on card and CPU.
+     per batch, the fused binning pass never, and every group step under
+     torch's sync debug mode "error" (no host sync a batch); profiled once;
+     the first 50,000 reads byte-identical on card and CPU.
   7. FASTA: `sketch --fasta` (k=21, w=9, s=42) on 2,000 synthetic contigs
      of 1-200 kb (about 206 Mb, 60 columns, 1% N, seed 0): each contig of
      65,536 bases or more takes the long-read step, one record-scan launch
@@ -92,8 +101,9 @@ Phases, each printing its seconds:
      minimizer and the fused binning pass once per (batch, shard), reads/s
      beside phase 5's; (11b) the same at -k 31 (the two-sort step in each
      shard): out.json byte-identical to phase 6's, the values entry once per
-     (batch, shard); (11c) --deviceFlush with the CWS tables striped over
-     the two entries, -i 1000000 over phase 8's files 0-1: out.json
+     (batch, shard), the group steps under sync debug mode "error"; (11c)
+     --deviceFlush with the CWS tables striped over the two entries,
+     -i 1000000 over phase 8's files 0-1: out.json
      byte-identical to a one-device host-flush run, no margin fallback, the
      striped candidate stage bit-equal to the one-device stage and its
      device time beside its bound; (11d) `sketch --kmv --khf --hmh` in two
@@ -283,19 +293,6 @@ def device_ms(launch, reps: int = 50, warm: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def adversarial_keys():
-    """Keys whose first divisor d=(key>>33)+1 hits the f64 rounding
-    boundaries: d=1, d=2^31, powers of two and their neighbours."""
-    import numpy as np
-
-    ds = [1, 2, 3]
-    for p in range(2, 32):
-        ds += [(1 << p) - 1, 1 << p, (1 << p) + 1]
-    ds = [d for d in ds if 1 <= d <= (1 << 31)]
-    keys = np.array([(d - 1) << 33 for d in ds], dtype=np.uint64)
-    return np.concatenate([keys, keys | np.uint64(0x1FFFFFFFF), keys | np.uint64(1)])
-
-
 def check_equal(name: str, got, want) -> None:
     import torch
 
@@ -345,11 +342,36 @@ def minimizer_bound(R: int, L: int, lengths, packed: bool) -> tuple[float, str]:
     return bound(read + 4 * R + 9 * R * L, ops, INT32_OPS_PER_S)
 
 
+def u8_times(c, ln, lengths, k: int, w: int, wm, rep, wm0, rep0, tag: str) -> dict:
+    """The u8 entry's device time on codes c [R, L] beside its bound and its
+    plain version's time (wm, rep: its outputs, rewritten by each launch)."""
+    import torch
+
+    from hulk_tpu_torch.ops import minimizer_cuda as mc
+    from hulk_tpu_torch.ops.minimizer import minimizer_window_torch
+
+    R, L = c.shape
+    f_u8 = mc.entry("hulk_minimizer_window")
+    a_u8 = (c.data_ptr(), ln.data_ptr(), R, L, k, w, 0, wm.data_ptr(), rep.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    out = dict(ms=device_ms(lambda: f_u8(*a_u8)),
+               plain_ms=time_ms(lambda: minimizer_window_torch(c, ln, k, w)),
+               bound=minimizer_bound(R, L, lengths, packed=False),
+               err=max(max_abs_err(wm, wm0), max_abs_err(rep, rep0)), shape=tag)
+    if f_u8(*a_u8) != 0:
+        raise SystemExit("FAIL minimizer_window: a timed launch was refused")
+    torch.cuda.synchronize()
+    check_equal(f"minimizer_window {tag} wmin after the timed launches", wm, wm0)
+    return out
+
+
 def minimizer_checks(rng, dev) -> dict:
     """The three minimizer entries against their plain versions on every
     case; at the driven paths' shapes, their device times beside their
-    bounds: the packed entry at the production batch, the u8 entry at a long
-    read's block 0, the cont entry at a group of continuation blocks."""
+    bounds: the packed entry and the u8 entry (entry()'s step and
+    sharded_histogram_step) at the production batch, the u8 entry also at a
+    long read's block 0 (its shape before entry() gave it a caller), the
+    cont entry at a group of continuation blocks."""
     import torch
 
     from hulk_tpu_torch.ops import minimizer_cuda as mc
@@ -388,6 +410,9 @@ def minimizer_checks(rng, dev) -> dict:
             out["unpack_ms"] = time_ms(lambda: unpack_codes2(c2, m8, ln))
             if f_pk(*a_pk) != 0:
                 raise SystemExit("FAIL minimizer_window_packed: a timed launch was refused")
+            # the u8 entry at entry()'s batch; hulk_jump_hash hashes its lanes
+            out["u8_batch"] = (wm, rep)
+            out["u8"] = u8_times(c, ln, lengths, k, w, wm, rep, wm0, rep0, tag)
         if (R, L, k, w) == TWO_SORT:
             out["two_sort_batch"] = (pm, prep)
         torch.cuda.synchronize()
@@ -419,17 +444,10 @@ def minimizer_checks(rng, dev) -> dict:
         print(f"minimizer_window u8 and packed {tag}: bit-equal "
               f"({int(rep.sum())} and {int(prep.sum())} reported lanes)", flush=True)
         del pm, prep, pm0, prep0, c2, m8
-        if R == 1:  # a long read's block 0: the u8 entry's path shape
-            f_u8 = mc.entry("hulk_minimizer_window")
-            a_u8 = (c.data_ptr(), ln.data_ptr(), R, L, k, w, 0, wm.data_ptr(),
-                    rep.data_ptr(), stream)
-            out["u8"] = dict(
-                ms=device_ms(lambda: f_u8(*a_u8)),
-                plain_ms=time_ms(lambda: minimizer_window_torch(c, ln, k, w)),
-                bound=minimizer_bound(R, L, lengths, packed=False),
-                err=max(max_abs_err(wm, wm0), max_abs_err(rep, rep0)), shape=tag)
-            if f_u8(*a_u8) != 0:
-                raise SystemExit("FAIL minimizer_window: a timed launch was refused")
+        if R == 1:  # a long read's block 0: the u8 entry's shape before entry()
+            r = u8_times(c, ln, lengths, k, w, wm, rep, wm0, rep0, tag)
+            print(f"minimizer_window_u8 at {tag}: device {r['ms']:.4f} ms a launch, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
         del c, ln, wm, rep, wm0, rep0
         torch.cuda.synchronize()
 
@@ -460,15 +478,18 @@ def minimizer_checks(rng, dev) -> dict:
     return out
 
 
-def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
+def jump_checks(rng, dev, batch, two_sort_batch, u8_batch) -> dict:
     """The three jump entries against their plain versions: the binning pass
     on the production batch's sorted keys and on synthetic sorted keys
     (mixed, all sentinel, one key repeated) at n = 194,481 and 2^31 - 1; the
-    values entry on the k=31 two-sort batch's sorted values (above 2^63) and
-    on synthetic sorted values (full range with runs of equal values, all
-    sentinel, one value repeated) at n = 1, 923,521 and 2^31 - 1; the
-    buckets-only entry on random and adversarial keys. Device times at the
-    main paths' batches beside their bounds."""
+    values entry on the k=31 two-sort batch's sorted values (above 2^63),
+    the whole buffer with the device count as the step bins it and its live
+    prefix, and on synthetic sorted values (full range with runs of equal
+    values, all sentinel, one value repeated) at n = 1, 923,521 and
+    2^31 - 1; the buckets entry on entry()'s batch (every lane of the u8
+    minimizer's per-read values), random and adversarial keys; then the
+    loop's boundary keys through all four entries (boundary_checks). Device
+    times at the paths' batches beside their bounds."""
     import numpy as np
     import torch
 
@@ -478,7 +499,8 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
                                                 bin_scatter_values_torch,
                                                 sorted_batch_keys, sorted_batch_values,
                                                 stream_bucket)
-    from hulk_tpu_torch.synth import sorted_keys, sorted_values
+    from hulk_tpu_torch.ops.minimizer import per_read_distinct
+    from hulk_tpu_torch.synth import jump_adversarial_keys, sorted_keys, sorted_values
 
     R, L, k, w = PRODUCTION
     vbits, n = 2 * k + 8, NBINS
@@ -506,23 +528,29 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
           f"duplicate-only keys at n={n} and 2^31-1: bit-equal", flush=True)
 
     # the values entry: the two-sort batch at k = 31, whole (sentinel tail
-    # included) and its live prefix, then synthetic sorted values
+    # included) with the device count, as the step bins it, and its live
+    # prefix; then synthetic sorted values
     svals, cnt = sorted_batch_values(*two_sort_batch)
+    cnt = int(cnt)
     n31 = NBINS_K31
     above = int((svals[:cnt] < 0).sum())
     if above == 0:
         raise SystemExit("FAIL two-sort batch: no value at or above 2^63")
     vhist = torch.zeros(n31, dtype=torch.int32, device=dev)
     vhist0 = torch.zeros_like(vhist)
+    vcount = torch.zeros((), dtype=torch.int64, device=dev)
+    vcount0 = torch.zeros_like(vcount)
     for part in (svals, svals[:cnt]):
-        vhist.zero_()
-        vhist0.zero_()
-        jc.bin_scatter_values_cuda(vhist, part)
-        bin_scatter_values_torch(vhist0, part)
+        for t in (vhist, vhist0, vcount, vcount0):
+            t.zero_()
+        jc.bin_scatter_values_cuda(vhist, part, count=vcount)
+        bin_scatter_values_torch(vhist0, part, count=vcount0)
         check_equal(f"bin_scatter_values two-sort batch N={part.numel()} n={n31}", vhist, vhist0)
-        if int(vhist.sum()) != cnt:
-            raise SystemExit(f"FAIL bin_scatter_values: {int(vhist.sum())} counted, {cnt} live")
-    verr = max_abs_err(vhist, vhist0)
+        check_equal(f"bin_scatter_values two-sort batch N={part.numel()} count", vcount, vcount0)
+        if int(vhist.sum()) != cnt or int(vcount) != cnt:
+            raise SystemExit(f"FAIL bin_scatter_values: {int(vhist.sum())} binned, "
+                             f"{int(vcount)} counted, {cnt} live")
+    verr = max(max_abs_err(vhist, vhist0), max_abs_err(vcount, vcount0))
     vtouched = int((vhist != 0).sum())  # bins the live values add to
     for kind, n_vals in (("mixed", 200_000), ("all_sentinel", 0), ("one_key", 5000)):
         vals = torch.from_numpy(sorted_values(rng, n_vals, one_key=kind == "one_key")
@@ -530,44 +558,66 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
         for nb in (1, n31, 2**31 - 1):
             got = torch.zeros(nb, dtype=torch.int32, device=dev)
             want = torch.zeros(nb, dtype=torch.int32, device=dev)
-            jc.bin_scatter_values_cuda(got, vals)
-            bin_scatter_values_torch(want, vals)
+            got_c, want_c = torch.zeros_like(vcount), torch.zeros_like(vcount)
+            jc.bin_scatter_values_cuda(got, vals, count=got_c)
+            bin_scatter_values_torch(want, vals, count=want_c)
             check_equal(f"bin_scatter_values {kind} n={nb}", got, want)
+            check_equal(f"bin_scatter_values {kind} n={nb} count", got_c, want_c)
             del got, want
     print(f"bin_scatter_values two-sort batch k=31 ({svals.numel()} lanes, {cnt} live, "
-          f"{above} at or above 2^63) and full-range/all-sentinel/one-key values at "
-          f"n=1, {n31} and 2^31-1: bit-equal", flush=True)
+          f"{above} at or above 2^63), whole with the count and its live prefix, and "
+          f"full-range/all-sentinel/one-key values at n=1, {n31} and 2^31-1: bit-equal, "
+          f"counts equal", flush=True)
 
+    # the buckets entry at entry()'s batch: every lane of the u8 minimizer's
+    # per-read values, SENT for dead lanes, as sketch_accumulate_step hashes
+    ekeys = per_read_distinct(*u8_batch)[0].reshape(-1).contiguous()
+    got = jc.jump_hash_cuda(ekeys, n)
+    want = jump_hash_torch(ekeys, n)
+    check_equal(f"jump_hash entry() batch N={ekeys.numel()} n={n}", got, want)
+    berr = max_abs_err(got, want)
     live = skeys != -1
     live[1:] &= skeys[1:] != skeys[:-1]
     values = torch.where(live, skeys & ((1 << vbits) - 1), 0)
-    got = jc.jump_hash_cuda(values, n)
-    want = jump_hash_torch(values, n)
-    check_equal(f"jump_hash production values N={N} n={n}", got, want)
-    berr = max_abs_err(got, want)
+    check_equal(f"jump_hash production values N={N} n={n}", jc.jump_hash_cuda(values, n),
+                jump_hash_torch(values, n))
     rkeys = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, size=N,
                                           dtype=np.int64)).to(dev)
     check_equal(f"jump_hash random keys N={N}", jc.jump_hash_cuda(rkeys, n),
                 jump_hash_torch(rkeys, n))
-    adv = torch.from_numpy(adversarial_keys().view(np.int64)).to(dev)
+    adv = torch.from_numpy(jump_adversarial_keys().view(np.int64)).to(dev)
     for nb in (1, 2, 2000, 194481, 2**31 - 1):
         check_equal(f"jump_hash adversarial n={nb}", jc.jump_hash_cuda(adv, nb),
                     jump_hash_torch(adv, nb))
-    print(f"jump_hash production values, random keys and adversarial keys "
-          f"({adv.numel()} x 5 n): bit-equal", flush=True)
+    print(f"jump_hash entry() batch ({ekeys.numel()} keys), the fused batch's values, random "
+          f"keys and adversarial keys ({adv.numel()} x 5 n): bit-equal", flush=True)
+    boundary_checks(dev)
 
     stream = torch.cuda.current_stream().cuda_stream
     f_bin, f_jump = jc.entry("hulk_bin_scatter_keys"), jc.entry("hulk_jump_hash")
     f_val = jc.entry("hulk_bin_scatter_values")
     a_bin = (skeys.data_ptr(), N, vbits, hist.data_ptr(), n, stream)
-    a_jump = (values.data_ptr(), N, n, got.data_ptr(), stream)
+    a_jump = (ekeys.data_ptr(), ekeys.numel(), n, got.data_ptr(), stream)
+    a_jump_old = (values.data_ptr(), N, n, got.data_ptr(), stream)
     live_vals = svals[:cnt]
-    a_val = (live_vals.data_ptr(), cnt, vhist.data_ptr(), n31, 0, None, stream)
+    a_val = (svals.data_ptr(), svals.numel(), vhist.data_ptr(), n31, 0, vcount.data_ptr(),
+             stream)
+    a_val_live = (live_vals.data_ptr(), cnt, vhist.data_ptr(), n31, 0, None, stream)
     iters_live = jump_iterations(values[live], n)
-    iters_all = jump_iterations(values, n)
+    iters_all = jump_iterations(ekeys, n)
     iters_vals = jump_iterations(live_vals, n31)
-    bins64, ones = got.long(), live.int()
-    # bytes: the keys or values read once, and each bin they add to read and
+    bins64, ones = jc.jump_hash_cuda(values, n).long(), live.int()
+    for tag, keys, nb, iters in (("fused batch's live values", values[live], n, iters_live),
+                                 ("entry() batch", ekeys, n, iters_all),
+                                 ("two-sort batch's live values", live_vals, n31, iters_vals)):
+        total, exact = jc.jump_steps_cuda(keys.contiguous(), nb)
+        if total != iters:
+            raise SystemExit(f"FAIL jump_hash_steps {tag}: {total} iterations, {iters} "
+                             f"by the plain loop")
+        print(f"jump loop on the {tag} ({keys.numel()} keys, n={nb}): {total} iterations, "
+              f"{exact} of them ({100 * exact / total:.4f}%) took the exact step", flush=True)
+    # bytes: the keys or values read once (the live prefix and its first
+    # sentinel for the sorted values), and each bin they add to read and
     # written once (4 bytes each way)
     out = {
         "fused": dict(ms=device_ms(lambda: f_bin(*a_bin)),
@@ -577,24 +627,93 @@ def jump_checks(rng, dev, batch, two_sort_batch) -> dict:
                                      f"keys into {touched} bins, {iters_live} loop "
                                      f"iterations)"),
         "buckets": dict(ms=device_ms(lambda: f_jump(*a_jump)),
-                        plain_ms=time_ms(lambda: jump_hash_torch(values, n)),
-                        bound=bound(12 * N, 2 * iters_all, FP64_OPS_PER_S), err=berr,
-                        shape=f"N={N} n={n} ({iters_all} loop iterations)"),
+                        plain_ms=time_ms(lambda: jump_hash_torch(ekeys, n)),
+                        bound=bound(12 * ekeys.numel(), 2 * iters_all, FP64_OPS_PER_S),
+                        err=berr, shape=f"entry()'s batch R={R} L={L}: N={ekeys.numel()} "
+                                        f"n={n} ({iters_all} loop iterations)"),
         "values": dict(ms=device_ms(lambda: f_val(*a_val)),
-                       plain_ms=time_ms(lambda: bin_scatter_values_torch(vhist0, live_vals)),
-                       bound=bound(8 * cnt + 2 * 4 * vtouched, 2 * iters_vals,
+                       plain_ms=time_ms(lambda: bin_scatter_values_torch(vhist0, svals,
+                                                                         count=vcount0)),
+                       bound=bound(8 * (cnt + 1) + 2 * 4 * vtouched + 8, 2 * iters_vals,
                                    FP64_OPS_PER_S),
-                       err=verr, shape=f"N={cnt} n={n31} (the k=31 two-sort batch's live "
-                                       f"values into {vtouched} bins, {iters_vals} loop "
-                                       f"iterations)"),
+                       err=verr, shape=f"the k=31 two-sort batch's whole buffer, N="
+                                       f"{svals.numel()} ({cnt} live values into {vtouched} "
+                                       f"bins, {iters_vals} loop iterations), n={n31}, "
+                                       f"with the device count"),
         "index_add_ms": device_ms(lambda: hist0.index_add_(0, bins64, ones)),
+        "buckets_fused_shape_ms": device_ms(lambda: f_jump(*a_jump_old)),
+        "values_live_prefix_ms": device_ms(lambda: f_val(*a_val_live)),
         "keys": skeys,
-        "values_live": live_vals,
+        "two_sort": (svals, cnt),
     }
-    if f_bin(*a_bin) != 0 or f_jump(*a_jump) != 0 or f_val(*a_val) != 0:
+    print(f"hulk_jump_hash at the fused step's batch ({N} keys, its shape before "
+          f"entry()): device {out['buckets_fused_shape_ms']:.4f} ms; "
+          f"hulk_bin_scatter_values on the two-sort batch's live prefix ({cnt} values, no "
+          f"count): device {out['values_live_prefix_ms']:.4f} ms", flush=True)
+    if f_bin(*a_bin) != 0 or f_jump(*a_jump) != 0 or f_val(*a_val) != 0 \
+            or f_jump(*a_jump_old) != 0 or f_val(*a_val_live) != 0:
         raise SystemExit("FAIL jump_hash: a timed launch was refused")
     torch.cuda.synchronize()
     return out
+
+
+def boundary_checks(dev) -> None:
+    """The jump loop where its filtered step hands over to the exact one:
+    the reciprocal seed's error over all 2^31 divisors within the bound the
+    proof assumes, then the adversarial keys and keys whose loop meets a
+    quotient within 2^-20 of an integer (synth.jump_boundary_keys) through
+    all four entries against their plain versions at n = 1, 194,481,
+    923,521 and 2^31 - 1 (the sorted entries on them sorted, SENT tail and
+    duplicates added; the keys entry on those below 2^63, vbits = 63), and
+    how many of their iterations took the exact step."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch._u64 import usort
+    from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
+    from hulk_tpu_torch.ops import jump_cuda as jc
+    from hulk_tpu_torch.ops.device_step import bin_scatter_keys_torch, bin_scatter_values_torch
+    from hulk_tpu_torch.synth import jump_adversarial_keys, jump_boundary_keys
+
+    t0 = time.perf_counter()
+    e = jc.seed_error_cuda(dev)
+    print(f"jump loop reciprocal seed over all 2^31 divisors: max |1 - s r0| = {e:.6e} = "
+          f"2^{math.log2(e):.3f} (the proof assumes at most "
+          f"2^{math.log2(jc.SEED_ERROR_BOUND):.0f}; {time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    if not e <= jc.SEED_ERROR_BOUND:
+        raise SystemExit(f"FAIL jump loop: the seed's error {e:.6e} passes the proof's bound")
+    adv = jump_adversarial_keys()
+    raw = np.concatenate([adv, jump_boundary_keys(np.random.default_rng(SEED))])
+    keys = torch.from_numpy(raw.view(np.int64)).to(dev)
+    tail = torch.full((64,), -1, dtype=torch.int64, device=dev)
+    svals = torch.cat([usort(torch.cat([keys, keys[::3]])), tail])
+    skeys = torch.cat([usort(keys[keys >= 0]), tail])
+    report = []
+    for nb in (1, 194481, 923521, 2**31 - 1):
+        check_equal(f"jump_hash boundary keys n={nb}", jc.jump_hash_cuda(keys, nb),
+                    jump_hash_torch(keys, nb))
+        for dedup in (False, True):
+            h, h0 = (torch.zeros(nb, dtype=torch.int32, device=dev) for _ in range(2))
+            c, c0 = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+            jc.bin_scatter_values_cuda(h, svals, dedup=dedup, count=c)
+            bin_scatter_values_torch(h0, svals, dedup=dedup, count=c0)
+            check_equal(f"bin_scatter_values boundary values dedup={dedup} n={nb}", h, h0)
+            check_equal(f"bin_scatter_values boundary values dedup={dedup} n={nb} count", c, c0)
+            del h, h0
+        h, h0 = (torch.zeros(nb, dtype=torch.int32, device=dev) for _ in range(2))
+        jc.bin_scatter_keys_cuda(h, skeys, 63)
+        bin_scatter_keys_torch(h0, skeys, 63)
+        check_equal(f"bin_scatter_keys boundary keys n={nb}", h, h0)
+        del h, h0
+        total, exact = jc.jump_steps_cuda(keys, nb)
+        report.append(f"n={nb}: {exact} of {total}")
+    print(f"jump loop boundary keys ({adv.size} adversarial, {raw.size - adv.size} within "
+          f"2^-20 of an integer) through the buckets, values (plain and dedup, with the "
+          f"count) and keys entries at n = 1, 194481, 923521, 2^31-1: bit-equal; exact "
+          f"steps of their iterations: {', '.join(report)}", flush=True)
 
 
 def record_checks(rng, dev) -> dict:
@@ -700,17 +819,25 @@ def record_checks(rng, dev) -> dict:
     return out
 
 
-def sketch_update_times(keys, values_live) -> None:
+def sketch_update_times(keys, two_sort) -> None:
     """The KMV, KHF and HMH updates a batch (plain PyTorch on the card), on
-    the production batch's fused feed and on the two-sort batch's."""
+    the production batch's fused feed and on the two-sort batch's; then the
+    two-sort step's binning of the whole SENT-tailed buffer with its sketch
+    feed both ways it could run: the whole buffer (no host sync), or the
+    live prefix after one read of the count (the step's form), the states
+    equal."""
+    import torch
+
     from hulk_tpu_torch.ops.device_sketches import (SketchStates, hmh_update, khf_update,
                                                     kmv_update)
-    from hulk_tpu_torch.ops.device_step import bottom_k_values, distinct_values
+    from hulk_tpu_torch.ops.device_step import (bin_scatter_values, bottom_k_values,
+                                                distinct_values, update_sketches)
 
     k = PRODUCTION[2]
+    svals, cnt = two_sort
     n_live = int((keys != -1).sum())
     feeds = {"fused k=21 R=16384": (distinct_values(keys[:n_live], 2 * k + 8), False),
-             "two-sort k=31 R=2048": (values_live, True)}
+             "two-sort k=31 R=2048": (svals[:cnt], True)}
     for tag, (vals, ascending) in feeds.items():
         st = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device=vals.device)
         kmv = time_ms(lambda: kmv_update(st.kmv, vals if ascending else bottom_k_values(vals, 42)))
@@ -719,6 +846,38 @@ def sketch_update_times(keys, values_live) -> None:
         print(f"sketch updates a batch, {tag} ({vals.numel()} values fed, s=42): "
               f"KMV {kmv:.4f} ms, KHF {khf:.4f} ms, HMH {hmh:.4f} ms "
               f"(plain PyTorch, CUDA events around one call)", flush=True)
+
+    dev = svals.device
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    dcount = count.clone() + cnt  # the step's device count of the batch
+    hist = torch.zeros(NBINS_K31, dtype=torch.int32, device=dev)
+
+    def whole(st):
+        bin_scatter_values(hist, svals, count=count)
+        update_sketches(st, svals, ascending=True)
+
+    def count_read(st):
+        bin_scatter_values(hist, svals, count=count)
+        update_sketches(st, svals[:int(dcount)], ascending=True)
+
+    states = {}
+    for name, fn in (("whole", whole), ("count_read", count_read)):
+        st = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device=dev)
+        fn(st)
+        states[name] = st
+    for a, b in ((states["whole"].kmv, states["count_read"].kmv),
+                 (states["whole"].khf, states["count_read"].khf),
+                 (states["whole"].hmh, states["count_read"].hmh)):
+        check_equal("two-sort sketch feed, whole buffer against live prefix", a, b)
+    st = SketchStates.empty(42, kmv=True, khf=True, hmh=True, device=dev)
+    t_read, t_whole = [time_ms(lambda: count_read(st))], []
+    t_whole += [time_ms(lambda: whole(st)), time_ms(lambda: whole(st))]
+    t_read.append(time_ms(lambda: count_read(st)))
+    print(f"two-sort step with --kmv --khf --hmh, binning and sketch feed a batch "
+          f"({svals.numel()} lanes, {cnt} live; CUDA events around one call, host time "
+          f"included, median of 20, in turns): the whole SENT-tailed buffer (no sync) "
+          f"{t_whole[0]:.4f}/{t_whole[1]:.4f} ms, the live prefix after one count read "
+          f"{t_read[0]:.4f}/{t_read[1]:.4f} ms; states equal", flush=True)
 
 
 # the JSON rows: (row name, C entry, launch counter key, source, TPU kernel)
@@ -744,7 +903,8 @@ ENTRIES = [
 
 def kernel_phase(rng, dev) -> dict:
     mins = minimizer_checks(rng, dev)
-    jumps = jump_checks(rng, dev, mins.pop("batch"), mins.pop("two_sort_batch"))
+    jumps = jump_checks(rng, dev, mins.pop("batch"), mins.pop("two_sort_batch"),
+                        mins.pop("u8_batch"))
     results = {**mins, **jumps, **record_checks(rng, dev)}
     for name, entry, _, _, _, key in ENTRIES:
         r = results[key]
@@ -754,7 +914,7 @@ def kernel_phase(rng, dev) -> dict:
     print(f"unpack_codes2 (plain, the pass the packed entry replaces): "
           f"{mins['unpack_ms']:.4f} ms; index_add_ of the production batch: "
           f"device {jumps['index_add_ms']:.4f} ms", flush=True)
-    sketch_update_times(jumps["keys"], jumps["values_live"])
+    sketch_update_times(jumps["keys"], jumps["two_sort"])
     rows = {}
     for name, entry, counter, src, rep, key in ENTRIES:
         r = results[key]
@@ -783,6 +943,43 @@ def jump_iterations(keys, n: int) -> int:
         keep = j < n
         key, j = key[keep], j[keep]
     return total
+
+
+@contextlib.contextmanager
+def no_host_sync_in_group_step():
+    """Run every group step (ops/device_step.py group_scan_body, as the
+    stream and the sharded stream's shards call it) under torch's sync
+    debug mode "error", so that a host sync inside it fails the run. The
+    mode is process-wide and the shards step in threads of their own, so it
+    stays on while any call is inside. Yields the number of calls made."""
+    import threading
+
+    import torch
+
+    from hulk_tpu_torch.ops import device_step
+    from hulk_tpu_torch.stream import pipeline
+
+    body = device_step.group_scan_body
+    lock, inside, calls = threading.Lock(), [0], [0]
+
+    def guarded(*args, **kw):
+        with lock:
+            inside[0] += 1
+            calls[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(*args, **kw)
+        finally:
+            with lock:
+                inside[0] -= 1
+                if not inside[0]:
+                    torch.cuda.set_sync_debug_mode(0)
+
+    device_step.group_scan_body = pipeline.group_scan_body = guarded
+    try:
+        yield calls
+    finally:
+        device_step.group_scan_body = pipeline.group_scan_body = body
 
 
 def sketch_cli(src: str, out: str, device: str, log_path: str,
@@ -1768,15 +1965,19 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
 
     # 11b: -k 31, the two-sort step in each shard
     steps = shard_steps(fq, 2048, 2)
-    seconds, counts, got = sharded_run("11b", [fq], tmp, two, kmer_size=31)
+    with no_host_sync_in_group_step() as groups:
+        seconds, counts, got = sharded_run("11b", [fq], tmp, two, kmer_size=31)
     path_launches["11b"] = counts
+    if groups[0] <= 0:
+        raise SystemExit("FAIL 11b: the shards' group step never ran")
     if got != want_b:
         raise SystemExit("FAIL 11b: the sharded -k 31 out.json differs from phase 6's")
     if (counts["minimizer_window_packed"] != steps or counts["bin_scatter_values"] != steps
             or sum(counts.values()) != 2 * steps):
         raise SystemExit(f"FAIL 11b: launches {counts}, expected {steps} (batch, shard) steps")
     print(f"11b -k 31 on [{dev}, {dev}]: {READS / seconds:.0f} reads/s; out.json "
-          f"byte-identical to phase 6's; {steps} (batch, shard) steps", flush=True)
+          f"byte-identical to phase 6's; {steps} (batch, shard) steps in {groups[0]} group "
+          f"steps, none with a host sync (sync debug mode \"error\")", flush=True)
 
     # 11c: the device flush with the tables striped over the two entries
     src2 = ",".join(files[:2])
@@ -2290,8 +2491,13 @@ def main() -> int:
             t0 = time.perf_counter()
             get_cws_tables(42, NBINS_K31)
             print(f"CWS tables s=42 d={NBINS_K31}: {time.perf_counter() - t0:.2f} s", flush=True)
-            seconds, n_min, counts = drive("two_sort", fq, tmp, flags)
+            with no_host_sync_in_group_step() as steps:
+                seconds, n_min, counts = drive("two_sort", fq, tmp, flags)
             path_launches["6"] = counts
+            if steps[0] <= 0:
+                raise SystemExit("FAIL two-sort path: the group step never ran")
+            print(f"two-sort: {steps[0]} group steps under sync debug mode \"error\": no "
+                  f"host sync", flush=True)
             check_sketch(os.path.join(tmp, "two_sort.json"), 42, k=31)
             print(f"sketch -k 31 {READS} reads: {READS / seconds:.0f} reads/s", flush=True)
             n2 = counts["minimizer_window_packed"]

@@ -17,18 +17,22 @@ the int32 histogram with atomics).
 
 Two-sort step (k >= 23 at R = 2048, and every R from k = 28): the same
 window minima, a per-read sort in unsigned order with its distinct values,
-one flat unsigned sort, then the binning pass over the sorted values (on
-the card one launch of the jump kernel's values entry, which counts equal
-neighbours, since they come from different reads). The long-read step
-(ops/longread.py) bins with the same entry in its dedup form.
+one flat unsigned sort, then the binning pass over the whole sorted buffer,
+SENT tail included (on the card one launch of the jump kernel's values
+entry, which counts equal neighbours, since they come from different reads,
+stops at the first SENT and adds the number it binned to the device count,
+as hulk_tpu adds its count on the device). Without secondary sketches it
+makes no host sync; with them it reads the live count once a batch, to
+feed them the live prefix. The long-read step (ops/longread.py) bins with
+the same entry in its dedup form.
 
-The reference picks branches on the device with lax.cond, which has no
-sync-free PyTorch form: a row that overflows the compact width sends the
-batch down the full-width branch, and a batch whose live lanes fit the
-static bucket bins only the bucket's prefix of the sorted keys. Here the
-predicates are read back in ONE host sync per batch. Every branch is exact,
-so the histogram, the count and the sketches do not depend on which one
-ran.
+The reference picks the fused step's branches on the device with lax.cond,
+which has no sync-free PyTorch form: a row that overflows the compact width
+sends the batch down the full-width branch, and a batch whose live lanes
+fit the static bucket bins only the bucket's prefix of the sorted keys.
+Here the predicates are read back in ONE host sync per batch. Every branch
+is exact, so the histogram, the count and the sketches do not depend on
+which one ran.
 """
 from __future__ import annotations
 
@@ -239,17 +243,15 @@ def bottom_k_values(vals: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def sorted_batch_values(wmin: torch.Tensor,
-                        report: torch.Tensor) -> tuple[torch.Tensor, int]:
+                        report: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The two-sort step (hulk_tpu/ops/device_step.py:stream_step_body): from
     a batch's window minima and report mask [R, L], each read's distinct
     values, then ONE flat sort in unsigned order (SENT last). Returns the
-    sorted values and the live count (a host int, the one sync a batch):
-    the live values are exactly the first `count`. The reference bins a
-    static bucket's prefix when the count fits it; knowing the count, the
-    port bins exactly the live prefix."""
+    sorted values and the live count, an int64 [] on their device (no host
+    sync): the live values are exactly the first `count`."""
     vals, mask = per_read_distinct(wmin, report)
     svals = usort(torch.where(mask, vals, SENT).reshape(-1))
-    return svals, int(mask.sum())
+    return svals, mask.sum()
 
 
 def update_sketches(states: SketchStates, vals: torch.Tensor, *, ascending: bool) -> None:
@@ -270,10 +272,11 @@ def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
                     w: int, bucket: int, states: SketchStates | None = None) -> None:
     """Run the g batches of one flat v2 transfer buffer through the step,
     accumulating into hist [nbins] int32, count [] int64 and the sketch
-    states (None when no secondary sketch is on) in place. The fused step when read ids < r pack above the value
-    bits (fused_bits_ok(k, r)), else the two-sort step, as hulk_tpu's
-    _DeviceStream._dispatch_group picks (stream/pipeline.py:239-249); both
-    are exact."""
+    states (None when no secondary sketch is on) in place. The fused step
+    when read ids < r pack above the value bits (fused_bits_ok(k, r)), else
+    the two-sort step, as hulk_tpu's _DeviceStream._dispatch_group picks
+    (stream/pipeline.py:239-249); both are exact. The fused step syncs the
+    host once a batch; the two-sort step only when sketches are on."""
     codes2, mask8, lengths = group_views2(flatbuf, g, r, l)
     fused = fused_bits_ok(k, r)
     vbits = 2 * k + 8
@@ -285,9 +288,10 @@ def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
             if states is not None:
                 update_sketches(states, distinct_values(skeys[:n_live], vbits),
                                 ascending=False)
+            count += cnt
         else:
             svals, cnt = sorted_batch_values(wmin, report)
-            bin_scatter_values(hist, svals[:cnt])
-            if states is not None:
-                update_sketches(states, svals[:cnt], ascending=True)
-        count += cnt
+            # the binning adds the live count to count on the device
+            bin_scatter_values(hist, svals, count=count)
+            if states is not None:  # the live prefix: one sync a batch
+                update_sketches(states, svals[:int(cnt)], ascending=True)

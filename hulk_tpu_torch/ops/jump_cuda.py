@@ -14,6 +14,11 @@ device count (counted apart, under "bin_scatter_values_dedup"; plain
 version device_step.bin_scatter_values_torch). Each wrapper checks its
 inputs, launches on PyTorch's current stream and counts its launches in
 `launches`.
+
+Two more entries measure the loop and are on no path: `jump_steps_cuda`
+runs the counting form of the buckets entry (the loop's iterations and how
+many took the exact step), and `seed_error_cuda` checks the reciprocal
+seed's error over every divisor, the bound the loop's proof assumes.
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ from hulk_tpu_torch.ops import _build
 SOURCE = "hulk_tpu_torch/csrc/jump_hash.cu"
 # launches of each entry in this process
 launches = {"jump_hash": 0, "bin_scatter_keys": 0, "bin_scatter_values": 0,
-            "bin_scatter_values_dedup": 0}
+            "bin_scatter_values_dedup": 0, "jump_hash_steps": 0, "jump_seed_error": 0}
+# the loop's proof holds while the seed's relative error is at most this
+# (csrc/jump_hash.cu)
+SEED_ERROR_BOUND = 2.0**-16
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {
@@ -36,6 +44,10 @@ ARGTYPES = {
     "hulk_bin_scatter_keys": [_P, _LL, _I, _P, _LL, _P],
     # svals, N, hist, n, dedup, count (or null), stream
     "hulk_bin_scatter_values": [_P, _LL, _P, _LL, _I, _P, _P],
+    # keys, N, n, steps, stream
+    "hulk_jump_hash_steps": [_P, _LL, _LL, _P, _P],
+    # maxbits, stream
+    "hulk_jump_seed_error": [_P, _P],
 }
 
 
@@ -123,3 +135,36 @@ def bin_scatter_values_cuda(hist: torch.Tensor, svals: torch.Tensor, *, dedup: b
                  None if count is None else count.data_ptr(), stream)
     _build.check_launch(err, name)
     _build.count_launch(launches, name)
+
+
+def jump_steps_cuda(keys: torch.Tensor, num_buckets: int) -> tuple[int, int]:
+    """The counting form of jump_hash_cuda's loop over keys [N] int64 on a
+    CUDA device: (iterations, iterations that took the exact step). Reads
+    the two counts back."""
+    _check_keys("jump_steps_cuda", keys)
+    _check_buckets("jump_steps_cuda", num_buckets)
+    steps = torch.zeros(2, dtype=torch.int64, device=keys.device)
+    if keys.numel():
+        fn = entry("hulk_jump_hash_steps")
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(keys.data_ptr(), keys.numel(), num_buckets, steps.data_ptr(), stream)
+        _build.check_launch(err, "jump_hash_steps")
+        _build.count_launch(launches, "jump_hash_steps")
+    iterations, exact = steps.tolist()
+    return iterations, exact
+
+
+def seed_error_cuda(device: torch.device) -> float:
+    """The largest |1 - s r0| of the loop's reciprocal seed r0 over all 2^31
+    scaled divisors s = d 2^-31, on a CUDA device (read back)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("seed_error_cuda: needs a CUDA device")
+    bits = torch.zeros((), dtype=torch.int64, device=device)
+    fn = entry("hulk_jump_seed_error")
+    with torch.cuda.device(device):
+        err = fn(bits.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "jump_seed_error")
+    _build.count_launch(launches, "jump_seed_error")
+    return float(bits.cpu().view(torch.float64))

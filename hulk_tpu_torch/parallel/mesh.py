@@ -66,8 +66,8 @@ def sharded_group_step(hists: list, counts: list, states: list, shards: list, *,
     v2 buffer, copies it to the device of hists[i] and runs the one-device
     group_scan_body into its own carries hists[i], counts[i], states[i], in
     place. The shards run in threads of their own, which share no state, so
-    that one device's host syncs (one a batch) do not hold up another's
-    launches. No collectives: the shards merge at the end or at an interval
+    that one device's host syncs (one a batch in the fused step) do not hold
+    up another's launches. No collectives: the shards merge at the end or at an interval
     boundary."""
     from hulk_tpu_torch.ops.device_step import group_scan_body, ship_group, stream_bucket
 

@@ -275,7 +275,8 @@ class _ShardedDeviceStream(_DeviceStream):
     exactly where the one-device stream hands its state over (take_hist,
     drain_into, collect, minimizer_total), so the rest of the pipeline does
     not change. The shards pack, copy and step in a thread each
-    (mesh.sharded_group_step), each with its one host sync a batch."""
+    (mesh.sharded_group_step), each with its host syncs (one a batch in the
+    fused step, none in the two-sort step without sketches)."""
 
     def __init__(self, cfg: SketchConfig, nbins: int, devices: list):
         super().__init__(cfg, nbins, devices[0])

@@ -156,6 +156,45 @@ def sorted_values(rng, n_values: int, *, one_key: bool = False, tail: int = 64):
     return np.concatenate([np.sort(vals), np.full(tail, 2**64 - 1, dtype=np.uint64)])
 
 
+def jump_adversarial_keys() -> np.ndarray:
+    """u64 keys whose first divisor d = (key>>33)+1 hits the f64 rounding
+    boundaries of the jump hash: d = 1, d = 2^31, powers of two and their
+    neighbours (as hulk_tpu's tests/test_jump_pallas.py builds them)."""
+    ds = [1, 2, 3]
+    for p in range(2, 32):
+        ds += [(1 << p) - 1, 1 << p, (1 << p) + 1]
+    ds = [d for d in ds if 1 <= d <= (1 << 31)]
+    keys = np.array([(d - 1) << 33 for d in ds], dtype=np.uint64)
+    return np.concatenate([keys, keys | np.uint64(0x1FFFFFFFF), keys | np.uint64(1)])
+
+
+def jump_boundary_keys(rng, n_keys: int = 1 << 20, within: float = 2.0**-20) -> np.ndarray:
+    """u64 keys whose jump-hash loop meets, at some iteration before j
+    reaches 2^31 - 1, a quotient x = (b+1) 2^31 / d within `within` of an
+    integer (tested exactly, in integers): the iterations on which the jump
+    kernel's filtered step hands over to its exact one. The ones found among
+    n_keys random keys (about 40 for 2^20 keys at 2^-20)."""
+    keys = rng.integers(0, 2**64 - 1, size=n_keys, dtype=np.uint64, endpoint=True)
+    key = keys.copy()
+    j = np.zeros(n_keys, dtype=np.int64)
+    live = np.ones(n_keys, dtype=bool)
+    hit = np.zeros(n_keys, dtype=bool)
+    scale = round(1 / within)
+    while live.any():
+        idx = np.flatnonzero(live)
+        key[idx] = key[idx] * np.uint64(2862933555777941757) + np.uint64(1)
+        d = ((key[idx] >> np.uint64(33)) + np.uint64(1)).astype(np.int64)
+        rem = ((j[idx] + 1) << 31) % d
+        hit[idx[np.minimum(rem, d - rem) * scale < d]] = True
+        # Go's next j: RN((b+1) RN(2^31/d)), truncated
+        nxt = ((j[idx] + 1).astype(np.float64) * (2147483648.0 / d.astype(np.float64))
+               ).astype(np.int64)
+        go = nxt < 2**31 - 1
+        j[idx[go]] = nxt[go]
+        live[idx[~go]] = False
+    return keys[hit]
+
+
 def sketch_jsons(out_dir: str, n: int, *, k: int = 21, s: int = 42, families: int = 32,
                  seed: int = 0) -> list[str]:
     """n sketch JSONs (histosketch, KMV and KHF) of `families` families of

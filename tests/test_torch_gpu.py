@@ -245,13 +245,108 @@ def test_two_sort_batch_values_kernel_matches_plain():
     _, lengths, codes2, mask8 = kernel_batch(np.random.default_rng(31), 2048, 160, 120, 160)
     c2, m8, ln = (torch.from_numpy(a).to(dev) for a in (codes2, mask8, lengths))
     svals, cnt = sorted_batch_values(*minimizer_window_packed_cuda(c2, m8, ln, 31, 9))
+    cnt = int(cnt)
     assert bool((svals[:cnt] < 0).any())  # bit 63 set
-    got = torch.zeros(923521, dtype=torch.int32, device=dev)
-    want = torch.zeros_like(got)
-    bin_scatter_values_cuda(got, svals)
-    bin_scatter_values_torch(want, svals)
-    assert int(want.sum()) == cnt
+    for part in (svals, svals[:cnt]):  # the whole SENT-tailed buffer, the live prefix
+        got = torch.zeros(923521, dtype=torch.int32, device=dev)
+        want = torch.zeros_like(got)
+        got_c = torch.zeros((), dtype=torch.int64, device=dev)
+        want_c = torch.zeros_like(got_c)
+        bin_scatter_values_cuda(got, part, count=got_c)
+        bin_scatter_values_torch(want, part, count=want_c)
+        assert int(want.sum()) == int(want_c) == cnt
+        assert torch.equal(got, want)
+        assert torch.equal(got_c, want_c)
+
+
+@pytest.mark.gpu
+def test_two_sort_group_step_makes_no_host_sync():
+    """Without sketches the two-sort group step bins the whole buffer and
+    counts on the card: no host sync (torch's sync debug mode "error"); the
+    histogram and count equal the CPU's."""
+    from hulk_tpu_torch import native
+    from hulk_tpu_torch.ops.device_step import group_scan_body, stream_bucket
+
+    dev = _card()
+    g, r, l, k, w = 2, 2048, 160, 31, 9
+    rng = np.random.default_rng(11)
+    pairs = [(rng.integers(0, 5, size=(r, l)).astype(np.uint8),
+              rng.integers(40, l + 1, size=r).astype(np.int32)) for _ in range(g)]
+    flat = torch.from_numpy(native.pack_group2(pairs, g, r, l))
+    kw = dict(g=g, r=r, l=l, k=k, w=w, bucket=stream_bucket(r, r * l, l=l, k=k, w=w))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        hist = torch.zeros(923521, dtype=torch.int32, device=d)
+        count = torch.zeros((), dtype=torch.int64, device=d)
+        buf = flat.to(d)
+        if d.type == "cuda":
+            group_scan_body(hist.clone(), count.clone(), buf, **kw)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            group_scan_body(hist, count, buf, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[d.type] = (hist.cpu(), count.cpu())
+    assert int(out["cpu"][1]) > 0
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 194481, 923521, 2**31 - 1])
+def test_jump_entries_at_the_loops_boundaries(n):
+    """Keys whose loop meets a quotient within 2^-20 of an integer (where
+    the kernel's filtered step hands over to its exact one) and the
+    adversarial keys, through all four jump entries, against the plain
+    versions; the counting form takes the plain loop's iterations."""
+    from hulk_tpu_torch._u64 import usort
+    from hulk_tpu_torch.hashes.jumphash import jump_hash_torch
+    from hulk_tpu_torch.ops import jump_cuda as jc
+    from hulk_tpu_torch.ops.device_step import bin_scatter_keys_torch, bin_scatter_values_torch
+    from hulk_tpu_torch.synth import jump_adversarial_keys, jump_boundary_keys
+
+    dev = _card()
+    raw = np.concatenate([jump_adversarial_keys(), jump_boundary_keys(np.random.default_rng(0))])
+    keys = torch.from_numpy(raw.view(np.int64)).to(dev)
+    assert torch.equal(jc.jump_hash_cuda(keys, n), jump_hash_torch(keys, n))
+    tail = torch.full((64,), -1, dtype=torch.int64, device=dev)
+    svals = torch.cat([usort(torch.cat([keys, keys[::3]])), tail])
+    for dedup in (False, True):
+        got, want = (torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2))
+        got_c, want_c = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        jc.bin_scatter_values_cuda(got, svals, dedup=dedup, count=got_c)
+        bin_scatter_values_torch(want, svals, dedup=dedup, count=want_c)
+        assert torch.equal(got, want)
+        assert torch.equal(got_c, want_c)
+        del got, want
+    skeys = torch.cat([usort(keys[keys >= 0]), tail])
+    got, want = (torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2))
+    jc.bin_scatter_keys_cuda(got, skeys, 63)
+    bin_scatter_keys_torch(want, skeys, 63)
     assert torch.equal(got, want)
+    del got, want
+    total, exact = jc.jump_steps_cuda(keys, n)
+    j, iterations = np.zeros(raw.size, dtype=np.int64), 0
+    key, live = raw.copy(), np.ones(raw.size, dtype=bool)
+    while live.any():  # Go's loop, counting its iterations
+        iterations += int(live.sum())
+        key[live] = key[live] * np.uint64(2862933555777941757) + np.uint64(1)
+        d = ((key[live] >> np.uint64(33)) + np.uint64(1)).astype(np.float64)
+        nxt = ((j[live] + 1).astype(np.float64) * (2147483648.0 / d)).astype(np.int64)
+        idx = np.flatnonzero(live)
+        j[idx] = np.where(nxt < n, nxt, j[idx])
+        live[idx[nxt >= n]] = False
+    assert total == iterations
+    assert 0 < exact < total
+
+
+@pytest.mark.gpu
+def test_jump_seed_error_within_the_proofs_bound():
+    from hulk_tpu_torch.ops import jump_cuda as jc
+
+    e = jc.seed_error_cuda(_card())
+    assert 0 < e <= jc.SEED_ERROR_BOUND
 
 
 @pytest.mark.gpu

@@ -14,8 +14,11 @@ These tests check, here, the identities their designs rest on:
   more entry a segment (E = P + w, from position p0 - w) so that the run-head
   test at a segment's first position sees position p0 - 1's window, with
   the van Herk blocks starting afresh at every segment;
-* csrc/jump_hash.cu replaces the divide by a reciprocal scaled by 2^31,
-  exits when the product p >= n and carries trunc(p) + 1 as a double; its
+* csrc/jump_hash.cu reads floor(Y) and 14 fraction bits of a product Y
+  within 2^-47 p of Go's p from RZ(Y + 2^38), takes Go's own p where Y
+  lies within 2^-14 of an integer, and goes on while the floor is below n
+  (tests/test_torch_jump_filter.py holds the rule on keys and steps near
+  those boundaries); its
   values entry bins every live value, equal neighbours included, on all 64
   bits, or in its dedup form each distinct one once, with its count.
 
@@ -171,28 +174,51 @@ def test_cont_form_identities(k, w):
     assert np.array_equal(wm, wm0.numpy().view(np.uint64))
 
 
-def model_jump(keys: np.ndarray, n: int) -> np.ndarray:
-    """csrc/jump_hash.cu's loop: d from its bits, 2^31 * (1/d), exit on the
-    product, trunc(p) + 1 carried as a double."""
+TWO31 = 2147483648.0
+FRAC_BITS = 14
+FRAC_MASK = (1 << FRAC_BITS) - 1
+# csrc/jump_hash.cu's bound on |y - p| / p while the seed's error is at most
+# 2^-16: x (2^-47.6) over x, rounded up
+REL_BOUND = 2.0**-47
+
+
+def filtered_step(j: np.ndarray, d: np.ndarray, perturb: float = 0.0):
+    """One iteration of csrc/jump_hash.cu's loop for b = j and divisors d
+    (float64, exact): (floor, in_range, exact). Go's p = RN((b+1)
+    RN(2^31/d)) is computed exactly; Y = p (1 + perturb) stands for the
+    kernel's seed-and-FMA product, |perturb| <= REL_BOUND. The kernel reads
+    z = RZ(Y + 2^38), whose mantissa is floor(Y 2^14) for Y < 2^38: F =
+    floor(Y) and 14 fraction bits; a fraction of 0 or 2^14 - 1 (Y within
+    2^-14 of an integer) takes p itself, the exact step. The loop goes on
+    while z < 2^38 + n: in range and F < n."""
+    p = (j + 1.0) * (TWO31 / d)
+    y = p * (1.0 + perturb)
+    code = np.floor(np.minimum(y, 2.0**38) * 2.0**FRAC_BITS).astype(np.int64)
+    c = code & FRAC_MASK
+    exact = (y < 2.0**38) & ((c == 0) | (c == FRAC_MASK))
+    code[exact] = np.floor(p[exact] * 2.0**FRAC_BITS).astype(np.int64)
+    v = np.where(exact, p, y)
+    return code >> FRAC_BITS, v < 2.0**38, exact
+
+
+def model_jump(keys: np.ndarray, n: int, perturb: float = 0.0):
+    """csrc/jump_hash.cu's loop: (buckets, exact steps). d and j as doubles,
+    then filtered_step; the lane goes on while the floor is in range and
+    below n, and its bucket is its last j."""
     key = keys.astype(np.uint64).copy()
-    bp1 = np.ones(key.shape)
-    out = np.full(key.shape, -1, dtype=np.int64)
+    j = np.zeros(key.shape, dtype=np.int64)
     live = np.ones(key.shape, dtype=bool)
-    two52 = 4503599627370496.0
+    exact_steps = 0
     while live.any():
-        key[live] = key[live] * U64(2862933555777941757) + U64(1)
-        d = (key[live] >> U64(33)) + U64(1)
-        df = (U64(0x4330000000000000) | d).view(np.float64) - two52
-        assert np.array_equal(df, d.astype(np.float64))
-        q = (1.0 / df) * 2147483648.0
-        assert np.array_equal(q, 2147483648.0 / df)
-        p = bp1[live] * q
-        go = p < n
         idx = np.flatnonzero(live)
-        out[idx[~go]] = bp1[idx[~go]].astype(np.int64) - 1
-        bp1[idx[go]] = np.floor(p[go]) + 1.0  # the kernel: RZ(p + 2^52) - (2^52 - 1)
+        key[idx] = key[idx] * U64(2862933555777941757) + U64(1)
+        d = ((key[idx] >> U64(33)) + U64(1)).astype(np.float64)
+        f, in_range, exact = filtered_step(j[idx].astype(np.float64), d, perturb)
+        exact_steps += int(exact.sum())
+        go = in_range & (f < n)
+        j[idx[go]] = f[go]
         live[idx[~go]] = False
-    return out.astype(np.int32)
+    return j.astype(np.int32), exact_steps
 
 
 @pytest.mark.parametrize("n", [1, 2, 2000, 194481, 2**31 - 1])
@@ -200,7 +226,8 @@ def test_jump_loop_identities(n):
     rng = np.random.default_rng(n)
     keys = np.concatenate([adversarial_keys(),
                            rng.integers(0, 2**64 - 1, size=5000, dtype=np.uint64, endpoint=True)])
-    assert np.array_equal(model_jump(keys, n), jump_hash_np(keys, n))
+    for perturb in (-REL_BOUND, 0.0, REL_BOUND):
+        assert np.array_equal(model_jump(keys, n, perturb)[0], jump_hash_np(keys, n))
 
 
 @pytest.mark.parametrize("n", [1, 2, 923521, 5_000_000])
@@ -212,7 +239,7 @@ def test_values_binning_identities(n):
                             np.full(5, 0xFFFFFFFFFFFFFFFE, dtype=np.uint64)])
     svals.sort()
     live = svals != MAX
-    model = np.bincount(model_jump(svals[live], n), minlength=n)
+    model = np.bincount(model_jump(svals[live], n)[0], minlength=n)
     hist = torch.zeros(n, dtype=torch.int32)
     bin_scatter_values_torch(hist, torch.from_numpy(svals.view(np.int64)))
     assert hist.sum() == live.sum() > 3000

@@ -58,11 +58,12 @@ def test_two_sort_step_matches_reference(k, w):
         torch.from_numpy(c2), torch.from_numpy(m8), torch.from_numpy(lengths), k, w)
     svals, cnt = tds.sorted_batch_values(wmin, report)
     hist = torch.zeros(nbins, dtype=torch.int32)
-    tds.bin_scatter_values(hist, svals[:cnt])
+    count = torch.zeros((), dtype=torch.int64)
+    tds.bin_scatter_values(hist, svals, count=count)  # the whole buffer, SENT tail
     sv_ref = np.asarray(sv_ref)
-    assert cnt == int(c_ref) > 0
+    assert int(cnt) == int(count) == int(c_ref) > 0
     assert np.array_equal(svals.numpy().view(np.uint64), sv_ref)
-    assert (sv_ref[:cnt] >= np.uint64(2**63)).any()
+    assert (sv_ref[:int(cnt)] >= np.uint64(2**63)).any()
     assert np.array_equal(hist.numpy(), np.asarray(h_ref))
 
 
@@ -77,6 +78,45 @@ def test_bin_scatter_values_counts_equal_neighbours():
     ref = np.asarray(jds.bin_scatter_slice(jnp.zeros(1000, dtype=jnp.int32), vals))
     assert hist.sum() == (vals != U64MAX).sum() > 3000
     assert np.array_equal(hist.numpy(), ref)
+
+
+@pytest.mark.parametrize("k", [23, 27, 31])
+def test_group_step_two_sort_bins_whole_buffer(k, monkeypatch):
+    """Without sketches the two-sort step bins each batch's whole sorted
+    buffer, SENT tail included, and the binning adds the live count to the
+    count itself (no host read of it); histogram and count equal hulk_tpu's
+    stream_step_body, which adds its count on the device, batch by batch."""
+    g, r, l, w, nbins = 2, 2048, 64, 9, 40_000
+    assert not tds.fused_bits_ok(k, r)
+    rng = np.random.default_rng(100 + k)
+    pairs = []
+    for _ in range(g):
+        lengths = rng.integers(k + w - 1, l + 1, size=r).astype(np.int32)
+        codes = rng.choice(5, size=(r, l), p=[0.245] * 4 + [0.02]).astype(np.uint8)
+        pairs.append((codes, lengths))
+    flat = native.pack_group2(pairs, g, r, l)
+    calls = []
+    binning = tds.bin_scatter_values
+
+    def spy(hist, svals, **kw):
+        calls.append((svals.numel(), kw.get("count") is count))
+        binning(hist, svals, **kw)
+
+    monkeypatch.setattr(tds, "bin_scatter_values", spy)
+    hist = torch.zeros(nbins, dtype=torch.int32)
+    count = torch.zeros((), dtype=torch.int64)
+    bucket = tds.stream_bucket(r, r * l, l=l, k=k, w=w)
+    tds.group_scan_body(hist, count, torch.from_numpy(flat), g=g, r=r, l=l, k=k, w=w,
+                        bucket=bucket)
+    assert calls == [(r * l, True)] * g
+
+    h = jnp.zeros(nbins, dtype=jnp.int32)
+    c = jnp.zeros((), dtype=jnp.int64)
+    for codes, lengths in pairs:
+        ref_codes = np.where(np.arange(l) < lengths[:, None], codes, 5)
+        h, c, _ = jds.stream_step_body(h, c, ref_codes, lengths, k=k, w=w, bucket=bucket)
+    assert int(count) == int(c) > 0
+    assert np.array_equal(hist.numpy(), np.asarray(h))
 
 
 @pytest.mark.parametrize("k", [23, 28])
