@@ -124,8 +124,12 @@ Phases, each printing its seconds:
      as in 12a with each entry's launches asserted, each entry's device
      time at full width and on the 4,096 bins beside its bound, the
      scan's beside the chain of its live bins' multiplies (a bare FP64
-     multiply chain timed at the scan's shape), and the plain versions'
-     time on their 4,096 bins; (12c) entry()'s step on the card
+     multiply chain timed at the scan's shape) and a chain of multiply-adds,
+     and the plain versions' time on their 4,096 bins, the selection's
+     also on Aka strictly decreasing (its worst case); both entries on
+     synth's corner cases of their designs; one drift flush's wall ms
+     (median of 5) and its device time by operator (torch.profiler, its
+     drift launches counted); (12c) entry()'s step on the card
      against the CPU, on its [64, 128] batch and at [16384, 160], the u8
      minimizer and hulk_jump_hash once each a call; (12d)
      dryrun_multichip(2) on the card against [cpu, cpu].
@@ -207,22 +211,30 @@ RANK_TIMEOUT = 600
 # versions run on the full-width histogram
 DRIFT = 0.9
 DRIFT_PREFIX = 4096
-# the drift scan's dependency-chain bound: a thread per CMS counter, each n
-# dependent FP64 multiplies, built with the kernels' flags (phase 1) and
-# timed at the scan's shape in phase 12
+# the drift scan's dependency chains: a thread per CMS counter, each n
+# dependent FP64 multiplies (the bound of the scan), or n multiply-adds of
+# +0 (the parent design's chain), built with the kernels' flags (phase 1)
+# and timed at the scan's shape in phase 12
 CHAIN_SOURCE = r"""
 #include <cuda_runtime.h>
-__global__ void chain(long long n, double dw, int threads, double* out) {
+template <bool kAdd>
+__global__ void chain(long long n, double dw, double add, int threads, double* out) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= threads) return;
   double c = 1.0 + t;
 #pragma unroll 16
-  for (long long i = 0; i < n; ++i) c = __dmul_rn(c, dw);
+  for (long long i = 0; i < n; ++i)
+    c = kAdd ? __dadd_rn(__dmul_rn(c, dw), add) : __dmul_rn(c, dw);
   out[t] = c;
 }
 extern "C" int multiply_chain(long long n, double dw, int threads, void* out, void* stream) {
-  chain<<<(threads + 63) / 64, 64, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, dw, threads, static_cast<double*>(out));
+  chain<false><<<(threads + 63) / 64, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, dw, 0.0, threads, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int mul_add_chain(long long n, double dw, int threads, void* out, void* stream) {
+  chain<true><<<(threads + 63) / 64, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, dw, 0.0, threads, static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -1266,24 +1278,54 @@ def json_docs(data: bytes) -> list:
     return docs
 
 
-def profiled_device_ms(fn, reps: int = 5, tag: str = "") -> float:
+def profiled_device_ms(fn, reps: int = 5, tag: str = "", expect: dict | None = None) -> float:
     """Device milliseconds a call of fn (plain PyTorch, many launches), by
     torch.profiler: the card's kernel and copy time over reps calls, after
-    one warm-up, divided by reps; with a tag, the operators that take it."""
+    one warm-up, divided by reps; with a tag, the operators that take it.
+    `expect` maps a kernel's name (a part of it) to its launches a call: the
+    tracer was seen to drop launches of one call in five (H100, CUDA 12.8),
+    so a trace short of them is taken again, up to three times, and its
+    counts are printed against the expected."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if not expect:
+            break
+        seen = {part: sum(e.count for e in events if part in e.key
+                          and e.device_type == torch.autograd.DeviceType.CUDA)
+                for part in expect}
+        whole = all(seen[part] == reps * k for part, k in expect.items())
+        print(f"{tag or 'profile'}, trace {attempt}: launches {seen}, expected "
+              f"{ {part: reps * k for part, k in expect.items()} }: "
+              f"{'complete' if whole else 'INCOMPLETE, its device ms short'}", flush=True)
+        if whole:
+            break
     if tag:
         print(f"{tag}, {reps} calls profiled:", flush=True)
         print(events.table(sort_by="self_device_time_total", row_limit=8), flush=True)
     return device_seconds(events) * 1e3 / reps
+
+
+def wall_ms(fn, reps: int = 5) -> list:
+    """The wall ms of reps calls of fn, each synchronized, sorted."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)
 
 
 def device_seconds(events) -> float:
@@ -2120,9 +2162,11 @@ def start_chain_build(tmp: str) -> tuple:
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
 
 
-def multiply_chain_ms(chain_build, n: int, threads: int, dw: float) -> float:
-    """Device ms of `threads` chains of n dependent FP64 multiplies (64
-    threads a block): the least time of the drift scan's n live bins."""
+def chain_times(chain_build, n: int, threads: int, dw: float) -> dict:
+    """Device ms of `threads` chains (64 threads a block) of n dependent
+    FP64 multiplies ("multiply": the least time of the drift scan's n live
+    bins) and of n multiply-adds of +0 ("mul+add": the parent scan's step
+    at every bin)."""
     import ctypes
 
     import torch
@@ -2131,33 +2175,43 @@ def multiply_chain_ms(chain_build, n: int, threads: int, dw: float) -> float:
     log = proc.communicate()[0]
     if proc.returncode != 0:
         raise SystemExit(f"FAIL nvcc on the multiply chain:\n{log}")
-    fn = ctypes.CDLL(so).multiply_chain
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    lib = ctypes.CDLL(so)
     out = torch.empty(threads, dtype=torch.float64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for key, name in (("multiply", "multiply_chain"), ("mul+add", "mul_add_chain")):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
 
-    def launch():
-        if fn(n, dw, threads, out.data_ptr(), stream) != 0:
-            raise SystemExit("FAIL the multiply chain did not launch")
+        def launch():
+            if fn(n, dw, threads, out.data_ptr(), stream) != 0:
+                raise SystemExit(f"FAIL the {key} chain did not launch")
 
-    return device_ms(launch, reps=10, warm=2)
+        times[key] = device_ms(launch, reps=10, warm=2)
+    return times
 
 
 def drift_bounds(n: int, s: int, depth: int, width: int) -> dict:
     """The drift entries' least times at n live bins. The scan: the counts,
     the int64 row table and the estimates once, the CMS read and written;
-    about 2 FP64 operations a (counter, bin). The selection: Aka [s, n]
-    and the bins read once; one FP64 compare a (slot, bin)."""
+    an FP64 multiply a (counter, bin) and an add a (row, bin), where the bin
+    hits its counter. The selection: Aka [s, n] and the bins read once; one
+    FP64 compare a (slot, bin)."""
     return {"cms_drift_scan": bound(8 * n + 8 * depth * n + 8 * n + 2 * 8 * depth * width,
-                                    2 * n * depth * width, FP64_OPS_PER_S),
+                                    n * depth * (width + 1), FP64_OPS_PER_S),
             "drift_select": bound(8 * s * n + 8 * n + 4 * 8 * s, s * n, FP64_OPS_PER_S)}
 
 
-def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None) -> dict:
-    """Each drift entry's device ms a launch through its C entry, from an
-    empty CMS and sketch, over the live bins of hist (its first `prefix`)."""
+def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None,
+                   worst: bool = False) -> dict:
+    """Each drift entry's device ms a launch through its C entry (fdc.entry:
+    this build's, or another's inside _build.bound), from an empty CMS and
+    sketch, over the live bins of hist (its first `prefix`); with `worst`,
+    the selection also on Aka strictly decreasing (every bin taken, every
+    chunk scanned: "drift_select decreasing"). "out" holds each launch's
+    outputs."""
     import numpy as np
     import torch
 
@@ -2173,20 +2227,65 @@ def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None) 
     est_rows = torch.empty(depth, n, dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     scan = fdc.entry("hulk_cms_drift_scan")
-    scan_ms = device_ms(lambda: scan(freqs.data_ptr(), rows.data_ptr(), n, cms0.data_ptr(),
-                                     cms_out.data_ptr(), depth, width, dw, est_rows.data_ptr(),
-                                     stream), reps=10, warm=2)
-    aka = _aka(est_rows.amin(0), torch.ones_like(ids, dtype=torch.bool), *(
+    res = {"cms_drift_scan": device_ms(
+        lambda: scan(freqs.data_ptr(), rows.data_ptr(), n, cms0.data_ptr(), cms_out.data_ptr(),
+                     depth, width, dw, est_rows.data_ptr(), stream), reps=10, warm=2)}
+    res["out"] = {"CMS": cms_out, "estimates": est_rows}
+    akas = {"drift_select": _aka(est_rows.amin(0), torch.ones_like(ids, dtype=torch.bool), *(
         torch.tensor(np.ascontiguousarray(t[:, ids.cpu().numpy()]), device=dev)
-        for t in (tables.c, tables.b, tables.exp_r)))
+        for t in (tables.c, tables.b, tables.exp_r)))}
+    if worst:
+        akas["drift_select decreasing"] = torch.from_numpy(
+            np.geomspace(1.0, 1e-6, n)[None, :] * (1.0 + np.arange(s))[:, None]).to(dev)
     sk0 = torch.zeros(s, dtype=torch.int64, device=dev)
     w0 = torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=dev)
-    sk_out, w_out = torch.empty_like(sk0), torch.empty_like(w0)
+    chunk = fdc.SELECT_CHUNK
+    chunk_min = torch.empty(s, -(-n // chunk), dtype=torch.float64, device=dev)
     select = fdc.entry("hulk_drift_select")
-    select_ms = device_ms(lambda: select(aka.data_ptr(), ids.data_ptr(), n, s, dw,
-                                         sk0.data_ptr(), w0.data_ptr(), sk_out.data_ptr(),
-                                         w_out.data_ptr(), stream), reps=10, warm=2)
-    return {"cms_drift_scan": scan_ms, "drift_select": select_ms}
+    for key, aka in akas.items():
+        sk_out, w_out = torch.empty_like(sk0), torch.empty_like(w0)
+        res[key] = device_ms(lambda: select(aka.data_ptr(), ids.data_ptr(), n, s, dw,
+                                            sk0.data_ptr(), w0.data_ptr(), sk_out.data_ptr(),
+                                            w_out.data_ptr(), chunk_min.data_ptr(), chunk,
+                                            stream), reps=10, warm=2)
+        res["out"][f"{key} bins"], res["out"][f"{key} weights"] = sk_out, w_out
+    return res
+
+
+def drift_corner_checks(dev, dw: float) -> None:
+    """The two drift entries against their plain versions on the card on
+    synth's corner cases of their designs (the scan's warp layout, tile
+    edges and a CMS carried in; the selection's chunk skip, with ties at
+    the threshold, +inf, NaN, Aka strictly decreasing, a carried sketch that
+    takes nothing and a walk past 32 chunks): the CMS, the estimates, the
+    bins and the weights bit-equal."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch.ops import flush_drift as fd
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.synth import drift_scan_cases, drift_select_cases
+
+    def bits(x):
+        return x.view(torch.int64)
+
+    for case, hist, table, cms in drift_scan_cases(np.random.default_rng(SEED)):
+        ids = np.flatnonzero(hist)
+        freqs = torch.from_numpy(hist[ids].astype(np.float64)).to(dev)
+        rows = torch.from_numpy(np.ascontiguousarray(table[:, ids])).to(dev)
+        cms = torch.from_numpy(cms).to(dev)
+        want = fd.cms_drift_scan_torch(freqs, rows, cms, dw)
+        got = fdc.cms_drift_scan_cuda(freqs, rows, cms, dw)
+        check_equal(f"cms_drift_scan CMS, {case}", bits(got[0]), bits(want[0]))
+        check_equal(f"cms_drift_scan estimates, {case}", bits(got[1]), bits(want[1]))
+    for case, aka, sk, w in drift_select_cases(np.random.default_rng(SEED), dw):
+        args = [torch.from_numpy(x).to(dev) for x in
+                (aka, 5 * np.arange(aka.shape[1], dtype=np.int64) + 3, sk, w)]
+        want = fd.drift_select_torch(*args, dw)
+        got = fdc.drift_select_cuda(*args, dw)
+        check_equal(f"drift_select bins, {case}", got[0], want[0])
+        check_equal(f"drift_select weights, {case}", bits(got[1]), bits(want[1]))
+    print("drift entries on synth's corner cases: bit-equal to the plain versions", flush=True)
 
 
 def drift_checks(dev, case: str, hist, tables, row_bins, dw: float,
@@ -2307,6 +2406,7 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
     drift_checks(dev, "a k=9 histogram", hist9, get_cws_tables(42, nbins9), rb9, dw)
     pre = drift_checks(dev, f"the first {DRIFT_PREFIX} live bins of phase 3's first half",
                        halves[0], tables, rb, dw, DRIFT_PREFIX)
+    drift_corner_checks(dev, dw)
     reset_launches()
     drifted, step_d, stripes_d = flushes([dev, dev], dw, True)
     path_launches["12b"] = counts = read_launches()
@@ -2315,40 +2415,51 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
                          f"the selection once a (flush, stripe)")
     check_against_host("12b sharded_flush_step, -x 0.9", drifted,
                        host_flushes(halves, tables, DRIFT))
-    t0 = time.perf_counter()
-    step_d(halves[0], rb, *empty(), stripes_d)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = wall_ms(lambda: step_d(halves[0], rb, *empty(), stripes_d))
+    drift_dev_ms = profiled_device_ms(
+        lambda: step_d(halves[0], rb, *empty(), stripes_d),
+        tag="sharded_flush_step, -x 0.9, 2 stripes",
+        expect={"cms_drift_scan_kernel": 1, "chunk_min_kernel": 2, "drift_select_kernel": 2})
     # each entry's device time by its C entry at the first flush's shape and
-    # on the plain versions' prefix; the scan's chain of multiplies
+    # on the plain versions' prefix; the scan's chains of multiplies and of
+    # multiply-adds
     n = live[0]
-    full = drift_entry_ms(dev, halves[0], tables, rb, dw)
+    full = drift_entry_ms(dev, halves[0], tables, rb, dw, worst=True)
     at_pre = drift_entry_ms(dev, halves[0], tables, rb, dw, DRIFT_PREFIX)
     bounds = drift_bounds(n, 42, depth, width)
-    chain_ms = multiply_chain_ms(chain_build, n, depth * width, dw)
+    chains = chain_times(chain_build, n, depth * width, dw)
+    mul_ms = chains["multiply"]
     print(f"12b sharded_flush_step, -x 0.9, on [{dev}, {dev}]: two flushes, CMS bit-equal to "
           f"the host flush's (HistoSketch(decay=0.9)), bins equal, weights within rtol "
-          f"1e-12; launches {counts}; one flush {wall_ms:.3f} ms wall", flush=True)
-    print(f"multiply chain: {depth * width} threads of {n} dependent FP64 multiplies, "
-          f"{chain_ms:.4f} ms device ({1e6 * chain_ms / n:.3f} ns a step)", flush=True)
+          f"1e-12; launches {counts}; one flush {walls[2]:.3f} ms wall (median of 5, "
+          f"{walls[0]:.3f}-{walls[-1]:.3f}), {drift_dev_ms:.4f} ms device", flush=True)
+    for key, ms in chains.items():
+        print(f"{key} chain: {depth * width} threads of {n} dependent FP64 steps, "
+              f"{ms:.4f} ms device ({1e6 * ms / n:.3f} ns a step)", flush=True)
     rows_out = []
     for name, entry, plain_ms in (("cms_drift_scan", "hulk_cms_drift_scan", pre["scan_ms"]),
                                   ("drift_select", "hulk_drift_select", pre["select_ms"])):
         (bd, by), ms = bounds[name], full[name]
-        chain = dict(chain_bound_ms=chain_ms, binds="chain" if chain_ms > bd else by) \
+        chain = dict(chain_bound_ms=mul_ms, mul_add_chain_ms=chains["mul+add"],
+                     binds="chain" if mul_ms > bd else by) \
             if name == "cms_drift_scan" else {}
-        binding = f", the chain {chain_ms:.4f} ms ({100 * chain_ms / ms:.1f}%)" if chain else ""
+        binding = (f", the multiply chain {mul_ms:.4f} ms ({100 * mul_ms / ms:.1f}%), the "
+                   f"mul+add chain {chains['mul+add']:.4f} ms") if chain else ""
         print(f"{name} ({entry}) n={n} live bins, s=42: device {ms:.4f} ms a launch "
               f"({1e6 * ms / n:.2f} ns a live bin), bound {bd:.4f} ms ({by}, "
               f"{100 * bd / ms:.1f}%){binding}; on the first {pre['n']} live bins "
               f"{at_pre[name]:.4f} ms, plain {plain_ms:.1f} ms ({plain_ms * n / pre['n']:.1f} "
-              f"ms scaled to {n} bins)", flush=True)
+              f"ms scaled to {n} bins)"
+              + (f"; on Aka strictly decreasing {full['drift_select decreasing']:.4f} ms"
+                 if name == "drift_select" else ""), flush=True)
         rows_out.append(dict(
             name=name, route="cuda", source=fdc.SOURCE,
             replaces="hulk_tpu/parallel/mesh.py:271-296 (lax.scan, no Pallas)", entry=entry,
             counter=name, max_abs_err=pre["err"], bit_equal=True, ms=ms, plain_ms=plain_ms,
             plain_shape=f"the first {pre['n']} live bins of phase 3's first half, one call",
             ms_at_plain_shape=at_pre[name], bound_ms=bd, bound_by=by, **chain,
+            **({"chunk": fdc.SELECT_CHUNK, "decreasing_aka_ms": full["drift_select decreasing"]}
+               if name == "drift_select" else {}),
             library_ms=None))
 
     # 12c: entry()'s step on the card against the CPU, then at the

@@ -12,6 +12,7 @@ machine without a card need not have nvcc.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -31,6 +32,8 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _entries: dict[str, object] = {}
+# entries of another build of the kernels that entry() gives while bound()
+_bound: dict[str, object] = {}
 # what this process's build did: its seconds and ptxas's register/spill
 # lines; None while the library was current
 build_report: tuple[float, str] | None = None
@@ -94,16 +97,34 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def entry(name: str, argtypes: list):
-    """The C entry `name` of the kernel library, bound once with its
+def bind(lib: ctypes.CDLL, name: str, argtypes: list):
+    """The C entry `name` of the loaded library `lib`, bound with its
     argtypes (ctypes.c_void_p for every pointer and the stream)."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(load(), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _entries[name] = fn
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
     return fn
+
+
+def entry(name: str, argtypes: list):
+    """The C entry `name` of the kernel library, bound once."""
+    fn = _bound.get(name) or _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = bind(load(), name, argtypes)
+    return fn
+
+
+@contextlib.contextmanager
+def bound(entries: dict):
+    """Within the block, entry(name) gives entries[name]: the wrappers then
+    launch another build's kernels (scripts/kernel_retime.py times a parent
+    build against this one through the same Python)."""
+    _bound.update(entries)
+    try:
+        yield
+    finally:
+        for name in entries:
+            _bound.pop(name, None)
 
 
 def count_launch(launches: dict, name: str) -> None:

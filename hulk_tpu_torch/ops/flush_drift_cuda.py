@@ -7,7 +7,8 @@ Replace the drift branch of hulk_tpu/parallel/mesh.py:sharded_flush_step
 `drift_select_cuda` each slot's selection (plain version
 drift_select_torch). Each wrapper checks its inputs, allocates its
 outputs, launches on PyTorch's current stream and counts its launches in
-`launches`. The inputs are left as they are.
+`launches` (one a call: the selection's two launches, its chunk minima
+and its walk, count once). The inputs are left as they are.
 """
 from __future__ import annotations
 
@@ -21,12 +22,17 @@ SOURCE = "hulk_tpu_torch/csrc/flush_drift.cu"
 # launches of each entry in this process
 launches = {"cms_drift_scan": 0, "drift_select": 0}
 
+# the Aka a chunk minimum of the selection covers: of 256, 1,024 and 4,096,
+# 256 was the fastest on a flush's Aka on the H100 (PERF.md)
+SELECT_CHUNK = 256
+
 _P, _LL, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
 ARGTYPES = {
     # freqs, row_bins, n, cms_in, cms_out, depth, width, dw, est_rows, stream
     "hulk_cms_drift_scan": [_P, _P, _LL, _P, _P, _I, _I, _D, _P, _P],
-    # aka, bins, n, s, dw, sketch_in, weights_in, sketch_out, weights_out, stream
-    "hulk_drift_select": [_P, _P, _LL, _I, _D, _P, _P, _P, _P, _P],
+    # aka, bins, n, s, dw, sketch_in, weights_in, sketch_out, weights_out,
+    # chunk_min, chunk, stream
+    "hulk_drift_select": [_P, _P, _LL, _I, _D, _P, _P, _P, _P, _P, _LL, _P],
 }
 
 
@@ -67,8 +73,6 @@ def cms_drift_scan_cuda(freqs: torch.Tensor, row_bins: torch.Tensor, cms: torch.
     if row_bins.shape != (depth, n):
         raise ValueError(f"{what}: row_bins must be [{depth}, {n}], got "
                          f"{list(row_bins.shape)}")
-    if width < 32:
-        raise ValueError(f"{what}: the CMS must be at least 32 wide, got {width}")
     cms_out = torch.empty_like(cms)
     est_rows = torch.empty((depth, n), dtype=torch.float64, device=cms.device)
     fn = entry("hulk_cms_drift_scan")
@@ -94,11 +98,13 @@ def drift_select_cuda(aka: torch.Tensor, bins: torch.Tensor, sketch: torch.Tenso
     if bins.shape[0] != n or sketch.shape[0] != s or weights.shape[0] != s:
         raise ValueError(f"{what}: aka [{s}, {n}] needs bins [{n}], sketch and weights [{s}]")
     sketch_out, weights_out = torch.empty_like(sketch), torch.empty_like(weights)
+    chunk_min = torch.empty((s, -(-n // SELECT_CHUNK)), dtype=torch.float64, device=aka.device)
     fn = entry("hulk_drift_select")
     with torch.cuda.device(aka.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(aka.data_ptr(), bins.data_ptr(), n, s, dw, sketch.data_ptr(),
-                 weights.data_ptr(), sketch_out.data_ptr(), weights_out.data_ptr(), stream)
+                 weights.data_ptr(), sketch_out.data_ptr(), weights_out.data_ptr(),
+                 chunk_min.data_ptr(), SELECT_CHUNK, stream)
     _build.check_launch(err, "drift_select")
     _build.count_launch(launches, "drift_select")
     return sketch_out, weights_out

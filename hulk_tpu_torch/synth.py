@@ -8,6 +8,8 @@ exercise the reference's N-corruption quirk:
     default about the size of a metagenome assembly (2,000 contigs of
     1-200 kb, about 200 Mb);
   * `kernel_batch`, `sorted_keys`, `sorted_values`: kernel inputs;
+  * `drift_scan_cases`, `drift_select_cases`: the drift kernels' corner
+    cases;
   * `sketch_jsons`: sketch JSON files of families of related samples, for
     smash;
   * `lsh_corpus`: sketch mins with near-duplicate queries, for LSH search.
@@ -193,6 +195,90 @@ def jump_boundary_keys(rng, n_keys: int = 1 << 20, within: float = 2.0**-20) -> 
         j[idx[go]] = nxt[go]
         live[idx[~go]] = False
     return keys[hit]
+
+
+def drift_scan_cases(rng, depth: int = 7, width: int = 2000, tile: int = 512) -> list:
+    """Corner cases of the drift CMS scan (csrc/flush_drift.cu
+    hulk_cms_drift_scan: a warp holds 32 counters of a row and steps tiles
+    of `tile` live bins), each (name, hist [nbins] int64 with 0 where a bin
+    is not live and counts 1-299 elsewhere, row table [depth, nbins] int64
+    in [0, cms width), cms [depth, cms width] f64 carried in, 0 or 1-49):
+    a CMS `width` wide whose counters decay below the smallest normal f64
+    between hits (the last warp of a row partial at 2,000), one 32 wide
+    (one warp a row, hit at every bin), row 0's first warp hit at every bin
+    of a tile and then not for two tiles, and 0, 1, 255-257 (half a tile),
+    tile - 1, tile and tile + 1 live bins."""
+    def case(name, nbins, live, w, table=None):
+        hist = np.where(rng.random(nbins) < live, rng.integers(1, 300, nbins), 0)
+        if table is None:
+            table = rng.integers(0, w, size=(depth, nbins))
+        cms = np.where(rng.random((depth, w)) < 0.3, rng.integers(1, 50, (depth, w)), 0)
+        return name, hist.astype(np.int64), table.astype(np.int64), cms.astype(np.float64)
+
+    cases = [case(f"width {width}, a carried CMS decaying below the smallest normal",
+                  3000, 0.9, width),
+             case("width 32", 700, 0.8, 32)]
+    nbins = 4 * tile + 100
+    table = rng.integers(0, width, size=(depth, nbins))
+    table[0, :tile + 40] = rng.integers(0, 32, tile + 40)
+    table[0, tile + 40:3 * tile + 40] = rng.integers(64, width, 2 * tile)
+    cases.append(case("row 0's first warp hit at every bin of a tile, then a gap of two "
+                      "tiles", nbins, 1.0, width, table))
+    for n in sorted({0, 1, 255, 256, 257, tile - 1, tile, tile + 1}):
+        name, hist, table, cms = case(f"{n} live bins", 2 * tile + 64, 0.0, width)
+        hist[np.sort(rng.choice(hist.shape[0], n, replace=False))] = rng.integers(1, 300, n)
+        cases.append((name, hist, table, cms))
+    return cases
+
+
+def drift_select_cases(rng, dw: float, s: int = 8, n: int = 2500) -> list:
+    """Corner cases of the drift slot selection (csrc/flush_drift.cu
+    hulk_drift_select: chunk minima, then a walk that scans only the chunks
+    below each slot's threshold weight / dw), each (name, aka [s, n] f64,
+    sketch [s] int64, weights [s] f64); n is 2,500, 8,500 or 0, a multiple
+    of no power of two above 4. Random Aka from an empty sketch and from a
+    half-filled one;
+    Aka strictly decreasing (every bin taken, every chunk scanned); twice
+    an Aka exactly weight / dw (not taken) and one just below it (taken),
+    at chunk edges, every other Aka above any threshold; +inf and NaN,
+    spread and in whole chunks (never taken); a carried sketch whose
+    weights take nothing; one Aka a slot below its threshold, all in the
+    33rd chunk of 256 (8,500 bins: the walk skips a whole group of 32 chunk
+    minima); no live bins."""
+    empty_sk = np.zeros(s, dtype=np.int64)
+    empty_w = np.full(s, np.finfo(np.float64).max)
+    esti = rng.integers(1, 300, n).astype(np.float64)
+    rand = rng.exponential(size=(s, n)) / esti
+    half_sk = np.where(rng.random(s) < 0.5, rng.integers(1, 1 << 20, s), 0)
+    half_w = np.where(half_sk > 0, rng.random(s) * 1e-3, np.finfo(np.float64).max)
+    cases = [("random Aka, an empty sketch", rand, empty_sk, empty_w),
+             ("random Aka, a half-filled sketch", rand, half_sk, half_w)]
+    dec = np.geomspace(1.0, 1e-6, n)[None, :] * (1.0 + np.arange(s))[:, None]
+    cases.append(("strictly decreasing Aka", dec, empty_sk, empty_w))
+    w = 0.25 + rng.random(s)
+    tie = (w / dw ** 4)[:, None] * (1.0 + rng.random((s, n)))
+    for slot in range(s):
+        wt = w[slot]
+        for p in (255 + 32 * slot, 1023 + 64 * slot):
+            tie[slot, p] = wt / dw
+            tie[slot, p + 1] = wt = np.nextafter(wt / dw, 0.0)
+    cases.append(("Aka equal to weight / dw (and just below) at chunk edges", tie,
+                  rng.integers(1, 1 << 20, s), w))
+    odd = rand.copy()
+    odd[rng.random((s, n)) < 0.2] = np.inf
+    odd[rng.random((s, n)) < 0.05] = np.nan
+    odd[:, :300] = np.inf
+    odd[:, 300:600] = np.nan
+    cases.append(("+inf and NaN Aka, spread and in whole chunks", odd, empty_sk, empty_w))
+    cases.append(("a carried sketch whose weights take nothing", rand + 1e-3, half_sk + 1,
+                  np.full(s, 1e-300)))
+    # weights 1 (threshold 1 / dw, below 2.5): only Aka below 1 are taken
+    far = 1e6 * (1.0 + rng.random((s, 8500)))
+    far[np.arange(s), 8300 + 17 * np.arange(s)] = 0.5 + 0.5 * rng.random(s)
+    cases.append(("one Aka below the threshold, past the first 32 chunks of 256", far,
+                  rng.integers(1, 1 << 20, s), np.ones(s)))
+    cases.append(("no live bins", np.empty((s, 0)), half_sk, half_w))
+    return cases
 
 
 def sketch_jsons(out_dir: str, n: int, *, k: int = 21, s: int = 42, families: int = 32,

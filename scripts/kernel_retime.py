@@ -20,12 +20,23 @@ this, other, at the shapes the paths launch them (seed 0):
     bins): the whole SENT-tailed buffer with the device count (the step's
     call) and the live prefix without it;
   * hulk_bin_scatter_values with dedup and the count on the sorted run
-    heads of one 200 kb record (k=21, w=9; the long-read step).
+    heads of one 200 kb record (k=21, w=9; the long-read step);
+  * the drift flush's two entries at chip_smoke.py phase 12b's shape (42
+    slots, CMS 7 x 2,000, dw = Go's exp(-0.9)) on a histogram with all
+    194,481 bins live (counts 1-299, seed 0) and on its first 4,096 live
+    bins (chip_smoke.drift_entry_ms): hulk_cms_drift_scan from an empty
+    CMS; hulk_drift_select from an empty sketch on the scan's Aka and on
+    Aka strictly decreasing (its worst case: every bin taken); beside them
+    the multiply chain and the mul+add chain of the scan's shape
+    (chip_smoke.chain_times) and one drift flush (sharded_flush_step over
+    two stripes on the card, this tree's Python with each build's two
+    entries bound in by _build.bound: wall ms, median of 5).
 Kernel times are device times (chip_smoke.device_ms: 50 launches queued
-through the C entry behind a sleep, one event pair); each round also checks
-that the builds give the same window minima, buckets and histograms. Prints
-one line a measurement and, last, one JSON object of them all, with the
-card's name and power limit.
+through the C entry behind a sleep, one event pair; 10 for the drift
+entries); each round also checks that the builds give the same window
+minima, buckets, histograms, CMS, estimates, bins and weights. Prints one
+line a measurement and, last, one JSON object of them all, with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -34,7 +45,9 @@ import ctypes
 import glob
 import json
 import os
+import shutil
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -44,12 +57,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="csrc directory of the other build")
     args = ap.parse_args()
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device: kernel_retime.py runs on the card only", file=sys.stderr)
         return 2
+    tmp = tempfile.mkdtemp(prefix="hulk_kernel_retime_")
+    os.environ.setdefault("HULK_TPU_TORCH_CACHE", os.path.join(tmp, "cache"))
+    try:
+        return retime(args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def retime(args, tmp: str) -> int:
+    import numpy as np
+    import torch
+
     import chip_smoke as cs
     from hulk_tpu_torch._u64 import usort
     from hulk_tpu_torch.ops import _build
@@ -64,21 +88,22 @@ def main() -> int:
 
     smi = cs.nvidia_smi()
     print(f"nvidia-smi: {smi}", flush=True)
+    chain_build = cs.start_chain_build(tmp)
     other_so = os.path.join(_build.build_dir(), "other", "libhulk_kernels.so")
     _build.compile_library(sorted(glob.glob(os.path.join(args.other, "*.cu"))), other_so)
     libs = {"other": ctypes.CDLL(other_so), "this": _build.load()}
     # the u8 entry took no cont argument before the cont form existed
     with open(os.path.join(args.other, "minimizer_window.cu")) as fh:
         takes_cont = {"other": "int cont, void* wmin" in fh.read(), "this": True}
+    # the drift selection took no chunk scratch before the chunk skip existed
+    with open(os.path.join(args.other, "flush_drift.cu")) as fh:
+        chunked = {"other": "void* chunk_min" in fh.read(), "this": True}
 
     def bind(lib, name, cont=True):
         if not hasattr(lib, name):
             return None
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
         argtypes = {**MIN_ARGS, **JUMP_ARGS}[name]
-        fn.argtypes = argtypes if cont else argtypes[:6] + argtypes[7:]
-        return fn
+        return _build.bind(lib, name, argtypes if cont else argtypes[:6] + argtypes[7:])
 
     dev = torch.device("cuda", 0)
     R, L, k, w = cs.PRODUCTION
@@ -150,6 +175,7 @@ def main() -> int:
             record(f"{name} hulk_bin_scatter_values ({tag}, N={vals.numel()})",
                    cs.device_ms(lambda: f_val(*a)))
 
+    drift_round, dw = drift_setup(dev, record, same)
     skeys = values = ekeys = None
     for name in ("other", "this", "this", "other"):
         lib = libs[name]
@@ -194,11 +220,73 @@ def main() -> int:
         bins64, ones = bins.long(), mask.int()
         record(f"{name} index_add_", cs.device_ms(lambda: hist.index_add_(0, bins64, ones)))
         jump_round(name, lib)
+        drift_round(name, lib, chunked[name])
+    for key, ms in cs.chain_times(chain_build, cs.NBINS, 7 * 2000, dw).items():
+        record(f"{key} chain (14,000 threads of {cs.NBINS} steps)", ms)
     print(json.dumps({"card": smi, "shape": f"R={R} L={L} k={k} w={w} n={n} "
                       f"N={skeys.numel()}; two-sort R={R2} L={L2} k={k2} w={w2} "
-                      f"N={svals.numel()} live={cnt}; record run heads {rheads.numel()}",
-                      "ms": results}), flush=True)
+                      f"N={svals.numel()} live={cnt}; record run heads {rheads.numel()}; "
+                      f"drift n={cs.NBINS} live bins (prefix {cs.DRIFT_PREFIX}), s=42, "
+                      f"CMS 7 x 2000", "ms": results}), flush=True)
     return 0
+
+
+def drift_setup(dev, record, same):
+    """The drift inputs at phase 12b's shape; returns drift_round(name, lib,
+    chunked), which times one build's two drift entries (chip_smoke's
+    drift_entry_ms) and one drift flush with them, and dw."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from hulk_tpu_torch.hashes.cws import build_cws_tables
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.ops import _build
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.parallel import mesh
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table, cms_shape
+
+    dw = float(go_exp(-cs.DRIFT))
+    n, s = cs.NBINS, 42
+    depth, width = cms_shape()
+    rng = np.random.default_rng(cs.SEED)
+    hist = torch.from_numpy(rng.integers(1, 300, n).astype(np.int32)).to(dev)
+    tables = build_cws_tables(s, n)
+    rb = torch.from_numpy(cms_row_bins_table(n, depth, width).astype(np.int64)).to(dev)
+    stripes = mesh.shard_tables([dev, dev], tables)
+    step = mesh.sharded_flush_step([dev, dev], dw, True, depth, width)
+    empty = (torch.zeros(depth, width, dtype=torch.float64, device=dev),
+             torch.zeros(s, dtype=torch.int64, device=dev),
+             torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=dev))
+
+    def drift_round(name: str, lib, chunked: bool) -> None:
+        scan = _build.bind(lib, "hulk_cms_drift_scan", fdc.ARGTYPES["hulk_cms_drift_scan"])
+        args = fdc.ARGTYPES["hulk_drift_select"]
+        if chunked:
+            select = _build.bind(lib, "hulk_drift_select", args)
+        else:  # no chunk scratch before the chunk skip: the call less those two
+            unchunked = _build.bind(lib, "hulk_drift_select", args[:9] + args[11:])
+
+            def select(*a):
+                return unchunked(*a[:9], a[11])
+        with _build.bound({"hulk_cms_drift_scan": scan, "hulk_drift_select": select}):
+            for prefix in (None, cs.DRIFT_PREFIX):
+                got = cs.drift_entry_ms(dev, hist, tables, rb, dw, prefix, worst=True)
+                m = got["out"]["estimates"].shape[1]
+                for what, t in got["out"].items():
+                    same(name, f"drift {what}, {m} bins", t.view(torch.int64))
+                record(f"{name} hulk_cms_drift_scan ({m} live bins)", got["cms_drift_scan"])
+                record(f"{name} hulk_drift_select (the flush's Aka, {m} live bins)",
+                       got["drift_select"])
+                record(f"{name} hulk_drift_select (decreasing Aka, {m} live bins)",
+                       got["drift_select decreasing"])
+            state = step(hist, rb, *empty, stripes)
+            same(name, "drift flush CMS", state[0].view(torch.int64))
+            same(name, "drift flush bins", state[1])
+            walls = cs.wall_ms(lambda: step(hist, rb, *empty, stripes))
+            record(f"{name} drift flush, wall (median of 5)", walls[2])
+
+    return drift_round, dw
 
 
 if __name__ == "__main__":

@@ -577,6 +577,36 @@ def test_drift_kernels_match_plain(nbins, live):
 
 
 @pytest.mark.gpu
+def test_drift_kernels_match_plain_on_corner_cases():
+    """The same two entries on synth's corner cases of their designs (the
+    scan's warp layout and tile edges; the selection's chunk skip, with
+    ties, +inf, NaN, Aka strictly decreasing and a walk past 32 chunks):
+    bit-equal to the plain versions."""
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.ops import flush_drift as fd
+    from hulk_tpu_torch.ops import flush_drift_cuda as fdc
+    from hulk_tpu_torch.synth import drift_scan_cases, drift_select_cases
+
+    dev = _card()
+    dw = float(go_exp(-0.9))
+    for _, hist, table, cms in drift_scan_cases(np.random.default_rng(14)):
+        ids = np.flatnonzero(hist)
+        freqs = torch.from_numpy(hist[ids].astype(np.float64)).to(dev)
+        rows = torch.from_numpy(np.ascontiguousarray(table[:, ids])).to(dev)
+        cms = torch.from_numpy(cms).to(dev)
+        got, want = fdc.cms_drift_scan_cuda(freqs, rows, cms, dw), \
+            fd.cms_drift_scan_torch(freqs, rows, cms, dw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for _, aka, sk, w in drift_select_cases(np.random.default_rng(15), dw):
+        args = [torch.from_numpy(x).to(dev) for x in
+                (aka, 5 * np.arange(aka.shape[1], dtype=np.int64) + 3, sk, w)]
+        want = fd.drift_select_torch(*args, dw)
+        got = fdc.drift_select_cuda(*args, dw)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int64), want[1].view(torch.int64))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("drift", [False, True])
 def test_sharded_flush_step_card_matches_cpu(drift):
     """sharded_flush_step over [card, card] against [cpu, cpu] on a k=9
