@@ -37,6 +37,7 @@ import os
 import sys
 import time
 
+from hulk_tpu_torch import spans
 from hulk_tpu_torch.parallel import distributed as dist
 from hulk_tpu_torch.version import HULK_COMPAT_VERSION
 
@@ -138,7 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
 def _profiling(on: bool, device: str):
     """--profiling: a torch.profiler trace of the run, written under
     ./hulk-profile (hulk_tpu's path) as a Chrome trace; the card's
-    activity is traced too when the run is on one."""
+    activity is traced too when the run is on one. The program's spans
+    (hulk_tpu_torch.spans) are on meanwhile, so the calling thread's spans
+    lie in the trace beside the kernels."""
     if not on:
         yield
         return
@@ -147,8 +150,13 @@ def _profiling(on: bool, device: str):
     acts = [ProfilerActivity.CPU]
     if device.startswith("cuda"):
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler("./hulk-profile")):
-        yield
+    was = spans.enabled()
+    spans.enable(True)
+    try:
+        with profile(activities=acts, on_trace_ready=tensorboard_trace_handler("./hulk-profile")):
+            yield
+    finally:
+        spans.enable(was)
 
 
 def _split_fastq_args(vals: list[str]) -> list[str]:
@@ -159,6 +167,13 @@ def _split_fastq_args(vals: list[str]) -> list[str]:
 
 
 def run_sketch(args) -> None:
+    """One sketch job: the span `job`, the root of the job's spans, from
+    the parameter check to the last write."""
+    with _profiling(args.profiling, args.device), spans.span("job"):
+        _sketch_job(args)
+
+
+def _sketch_job(args) -> None:
     from hulk_tpu_torch import native
     from hulk_tpu_torch.stream.fastq import stream_reads
     from hulk_tpu_torch.stream.pipeline import (
@@ -282,8 +297,7 @@ def run_sketch(args) -> None:
             sys.stdout.buffer.flush()
 
     try:
-        with _profiling(args.profiling, args.device):
-            result = run_sketch_pipeline(reads, cfg, on_interval=on_interval)
+        result = run_sketch_pipeline(reads, cfg, on_interval=on_interval)
     except (PipelineError, ValueError) as e:
         _error_check(str(e))
         return
@@ -297,12 +311,13 @@ def run_sketch(args) -> None:
     if dist.rank() != 0:
         log.info("finished in %.6fs (output written by process 0)", time.time() - start)
         return
-    result.hulk_data.write_json(args.outFile + ".json")
-    log.info("\twritten sketch to disk: %s", args.outFile + ".json")
-    if args.stream:
-        sys.stdout.buffer.write(result.hulk_data.to_json_bytes())
-        sys.stdout.buffer.write(b"\n")
-        sys.stdout.buffer.flush()
+    with spans.span("job.write"):
+        result.hulk_data.write_json(args.outFile + ".json")
+        log.info("\twritten sketch to disk: %s", args.outFile + ".json")
+        if args.stream:
+            sys.stdout.buffer.write(result.hulk_data.to_json_bytes())
+            sys.stdout.buffer.write(b"\n")
+            sys.stdout.buffer.flush()
     log.info("finished in %.6fs", time.time() - start)
 
 

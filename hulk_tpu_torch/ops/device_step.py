@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from hulk_tpu_torch import spans
 from hulk_tpu_torch._u64 import I64MAX, SENT, flip, usort
 from hulk_tpu_torch.hashes.jumphash import jump_hash, jump_hash_torch
 from hulk_tpu_torch.ops.device_sketches import (
@@ -101,10 +102,12 @@ def ship_group(staged: list, l: int, rmax: int, device: torch.device):
 
     g = len(staged)
     r = min(rmax, -(-max(c.shape[0] for c, _ in staged) // 64) * 64)
-    host = torch.empty(native.group2_nbytes(g, r, l), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    native.pack_group2(staged, g, r, l, out=host.numpy())
-    return host.to(device, non_blocking=True), g, r
+    with spans.span("stream.pack"):
+        host = torch.empty(native.group2_nbytes(g, r, l), dtype=torch.uint8,
+                           pin_memory=device.type == "cuda")
+        native.pack_group2(staged, g, r, l, out=host.numpy())
+    with spans.span("stream.h2d"):
+        return host.to(device, non_blocking=True), g, r
 
 
 def sketch_accumulate_step(hist: torch.Tensor, codes: torch.Tensor, lengths: torch.Tensor, *,
@@ -199,14 +202,16 @@ def sorted_batch_keys(wmin: torch.Tensor, report: torch.Tensor, *, k: int,
         # pushes each row's live lanes to the row's front
         rs = torch.sort(torch.where(m, wmin, I64MAX), dim=1).values
         overflow = (rs[:, C] != I64MAX).any()
-        overflow, m_live = torch.stack([overflow.to(torch.int64), m_live]).tolist()
+        with spans.span("stream.sync"):
+            overflow, m_live = torch.stack([overflow.to(torch.int64), m_live]).tolist()
         if overflow:
             flat = torch.where(m, rid | wmin, SENT).reshape(-1)
         else:
             kept = rs[:, :C]
             flat = torch.where(kept != I64MAX, rid | kept, SENT).reshape(-1)
     else:
-        m_live = int(m_live)
+        with spans.span("stream.sync"):
+            m_live = int(m_live)
         flat = torch.where(m, rid | wmin, SENT).reshape(-1)
 
     # keys with bit 63 set (read ids >= 2^(63-vbits)) sort as unsigned
@@ -280,18 +285,22 @@ def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
     codes2, mask8, lengths = group_views2(flatbuf, g, r, l)
     fused = fused_bits_ok(k, r)
     vbits = 2 * k + 8
-    for i in range(g):
-        wmin, report = minimizer_window_packed(codes2[i], mask8[i], lengths[i], k, w)
-        if fused:
-            skeys, cnt, n_live = sorted_batch_keys(wmin, report, k=k, w=w, bucket=bucket)
-            bin_scatter_keys(hist, skeys, vbits)
-            if states is not None:
-                update_sketches(states, distinct_values(skeys[:n_live], vbits),
-                                ascending=False)
-            count += cnt
-        else:
-            svals, cnt = sorted_batch_values(wmin, report)
-            # the binning adds the live count to count on the device
-            bin_scatter_values(hist, svals, count=count)
-            if states is not None:  # the live prefix: one sync a batch
-                update_sketches(states, svals[:int(cnt)], ascending=True)
+    with spans.span("stream.step"):
+        for i in range(g):
+            spans.count("stream.batches")
+            wmin, report = minimizer_window_packed(codes2[i], mask8[i], lengths[i], k, w)
+            if fused:
+                skeys, cnt, n_live = sorted_batch_keys(wmin, report, k=k, w=w, bucket=bucket)
+                bin_scatter_keys(hist, skeys, vbits)
+                if states is not None:
+                    update_sketches(states, distinct_values(skeys[:n_live], vbits),
+                                    ascending=False)
+                count += cnt
+            else:
+                svals, cnt = sorted_batch_values(wmin, report)
+                # the binning adds the live count to count on the device
+                bin_scatter_values(hist, svals, count=count)
+                if states is not None:  # the live prefix: one sync a batch
+                    with spans.span("stream.sync"):
+                        n_live = int(cnt)
+                    update_sketches(states, svals[:n_live], ascending=True)

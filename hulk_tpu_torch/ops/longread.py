@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from hulk_tpu_torch._u64 import SENT, usort
+from hulk_tpu_torch.spans import span
 from hulk_tpu_torch.ops.device_sketches import SketchStates
 from hulk_tpu_torch.ops.device_step import bin_scatter_values, update_sketches
 from hulk_tpu_torch.ops.minimizer import check_kw, record_run_heads_torch
@@ -114,7 +115,9 @@ def sorted_record_values(codes: torch.Tensor, *, k: int, w: int,
     each one or more times. Reads the heads' count back, the one host sync
     a record, so that only the live prefix is sorted."""
     heads, count = record_heads(codes, k=k, w=w, cap=cap)
-    return usort(heads[:int(count)])
+    with span("stream.sync"):
+        n = int(count)
+    return usort(heads[:n])
 
 
 def long_read_step(hist: torch.Tensor, count: torch.Tensor, states: SketchStates | None,

@@ -24,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from hulk_tpu_torch import spans
+
 # Relative margin of the argmin recheck. The device's f64 exp/log (CUDA's,
 # or torch's CPU kernels) are within a few ULP of Go's fdlibm each, so a
 # device Aka is within ~1e-15 of the exact value; 1e-12 leaves three orders
@@ -79,7 +81,8 @@ def sharded_group_step(hists: list, counts: list, states: list, shards: list, *,
 
     live = [i for i, shard in enumerate(shards) if shard is not None]
     with ThreadPoolExecutor(len(live), thread_name_prefix="hulk-shard") as pool:
-        for f in [pool.submit(step, i) for i in live]:
+        run = spans.carry(step)
+        for f in [pool.submit(run, i) for i in live]:
             f.result()
 
 

@@ -18,6 +18,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from hulk_tpu_torch import spans
 from hulk_tpu_torch.ops.encode import PackedReads, pack_reads
 
 
@@ -53,7 +54,7 @@ class RawReads:
     reads_in_file_end: int | None = None
 
 
-def prefetch_batches(batches, depth: int = 16):
+def prefetch_batches(batches, depth: int, name: str, span_names: tuple):
     """Run a batch iterator in a background thread with a bounded queue.
 
     The host input path (gunzip + parse + pack, all GIL-releasing) then
@@ -62,6 +63,10 @@ def prefetch_batches(batches, depth: int = 16):
     goroutines (src/pipeline/pipeline.go:61-70). Exceptions raised by the
     producer propagate to the consumer; the producer stops if the consumer
     abandons the iterator.
+
+    The caller names the thread and its two spans (hulk_tpu_torch.spans):
+    each next() of the iterator in the thread and each get in the consumer,
+    in that order in span_names.
     """
     import queue
     import threading
@@ -69,10 +74,16 @@ def prefetch_batches(batches, depth: int = 16):
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     stop = threading.Event()
+    step, get = span_names
 
     def worker():
         try:
-            for b in batches:
+            it = iter(batches)
+            while True:
+                with spans.span(step):
+                    b = next(it, done)
+                if b is done:
+                    break
                 while not stop.is_set():
                     try:
                         q.put(b, timeout=0.2)
@@ -85,11 +96,12 @@ def prefetch_batches(batches, depth: int = 16):
         except BaseException as e:  # propagate to the consumer
             q.put(e)
 
-    t = threading.Thread(target=worker, daemon=True, name="hulk-prefetch")
+    t = threading.Thread(target=spans.carry(worker), daemon=True, name=name)
     t.start()
     try:
         while True:
-            item = q.get()
+            with spans.span(get):
+                item = q.get()
             if item is done:
                 break
             if isinstance(item, BaseException):
@@ -341,7 +353,9 @@ def batch_reads_native(
             chunk_src = _skip_lines(chunk_src, 4 * skip_reads)
         # decompression in its own thread (zlib releases the GIL), overlapped
         # with native packing here
-        for chunk in prefetch_batches(chunk_src, depth=4):
+        for chunk in prefetch_batches(
+                chunk_src, depth=4, name="hulk-gunzip",
+                span_names=("input.gunzip", "input.chunk_wait")):
             if progress is not None:
                 progress["parse_bytes"] = progress.get("parse_bytes", 0) + len(chunk)
             for item in packer.feed(chunk):

@@ -41,7 +41,6 @@ from __future__ import annotations
 import copy
 import logging
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterator
@@ -49,6 +48,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from hulk_tpu_torch import spans
 from hulk_tpu_torch.io.sketchio import HULKData
 from hulk_tpu_torch.ops.device_sketches import SketchStates
 from hulk_tpu_torch.ops.device_step import (
@@ -215,12 +215,15 @@ class _DeviceStream:
         count and states of the stream's (first) device: one copy, one
         record scan, one sort and one binning launch (ops/longread.py)."""
         cfg = self.cfg
-        long_read_step(self.hist, self.count, self.states, to_device(codes, self.device),
-                       k=cfg.kmer_size, w=cfg.window_size)
+        spans.count("stream.batches")
+        with spans.span("stream.long_read"):
+            long_read_step(self.hist, self.count, self.states, to_device(codes, self.device),
+                           k=cfg.kmer_size, w=cfg.window_size)
 
     def minimizer_total(self) -> int:
         self._flush_staged()
-        return int(self.count)
+        with spans.span("stream.sync"):
+            return int(self.count)
 
     def take_hist(self) -> torch.Tensor:
         """Hand the device histogram to the caller and start a new one, with
@@ -233,7 +236,8 @@ class _DeviceStream:
     def drain_into(self, spectrum: KmerSpectrum) -> None:
         """Add the device histogram to the host spectrum and reset it."""
         self._flush_staged()
-        h = self.hist.cpu().numpy().astype(np.float64)
+        with spans.span("stream.sync"):
+            h = self.hist.cpu().numpy().astype(np.float64)
         if h.any():
             spectrum.add_dense(h)
             self.hist.zero_()
@@ -250,16 +254,20 @@ def _merge_states(st: SketchStates | None, kmv, khf, hmh, s: int) -> None:
     """Merge device sketch states into the host objects: bottom-s union of
     the multisets, elementwise minimum, register maximum. Each is the
     sketch's exact merge, so merging shard after shard gives the merge of
-    all, and a resumed state survives."""
+    all, and a resumed state survives. No state (no sketch on): nothing to
+    read."""
+    if st is None:
+        return
     u64 = lambda t: t.cpu().numpy().view(np.uint64)  # noqa: E731
-    if kmv is not None:
-        vals = u64(st.kmv)
-        vals = vals[vals != np.uint64(0xFFFFFFFFFFFFFFFF)]
-        kmv._values = np.sort(np.concatenate([kmv._values, vals]))[:s]
-    if khf is not None:
-        khf.sketch = np.minimum(khf.sketch, u64(st.khf))
-    if hmh is not None:
-        hmh.registers = np.maximum(hmh.registers, u64(st.hmh))
+    with spans.span("stream.sync"):
+        if kmv is not None:
+            vals = u64(st.kmv)
+            vals = vals[vals != np.uint64(0xFFFFFFFFFFFFFFFF)]
+            kmv._values = np.sort(np.concatenate([kmv._values, vals]))[:s]
+        if khf is not None:
+            khf.sketch = np.minimum(khf.sketch, u64(st.khf))
+        if hmh is not None:
+            hmh.registers = np.maximum(hmh.registers, u64(st.hmh))
 
 
 class _ShardedDeviceStream(_DeviceStream):
@@ -304,7 +312,8 @@ class _ShardedDeviceStream(_DeviceStream):
 
     def minimizer_total(self) -> int:
         self._flush_staged()
-        return sum(int(c) for c in self.counts)
+        with spans.span("stream.sync"):
+            return sum(int(c) for c in self.counts)
 
     def _sum_hists(self) -> torch.Tensor:
         """The shards' histograms summed in int64 on devices[0] (hulk_tpu's
@@ -321,7 +330,8 @@ class _ShardedDeviceStream(_DeviceStream):
 
     def drain_into(self, spectrum: KmerSpectrum) -> None:
         self._flush_staged()
-        h = self._sum_hists().cpu().numpy().astype(np.float64)
+        with spans.span("stream.sync"):
+            h = self._sum_hists().cpu().numpy().astype(np.float64)
         if h.any():
             spectrum.add_dense(h)
 
@@ -532,11 +542,12 @@ def run_sketch_pipeline(
     if not native.available():
         raise PipelineError("the native host runtime (g++) is unavailable")
     nbins = cfg.resolved_spectrum_size()
-    spectrum = KmerSpectrum(nbins)
-    hs = HistoSketch(k, cfg.sketch_size, nbins, cfg.decay_ratio)
-    kmv = KMVSketch(k, cfg.sketch_size) if cfg.kmv else None
-    khf = KHFSketch(k, cfg.sketch_size) if cfg.khf else None
-    hmh = HyperMinHash(k) if cfg.hmh else None
+    with spans.span("stream.setup"):
+        spectrum = KmerSpectrum(nbins)
+        hs = HistoSketch(k, cfg.sketch_size, nbins, cfg.decay_ratio)
+        kmv = KMVSketch(k, cfg.sketch_size) if cfg.kmv else None
+        khf = KHFSketch(k, cfg.sketch_size) if cfg.khf else None
+        hmh = HyperMinHash(k) if cfg.hmh else None
 
     seq_count = 0
     length_total = 0
@@ -577,12 +588,13 @@ def run_sketch_pipeline(
                 "device flush requires a single process (the reference "
                 "merges spectra before flushing once)"
             )
-    devices = cfg.resolved_devices()
-    if len(devices) > 1:
-        dev = _ShardedDeviceStream(cfg, nbins, devices)
-    else:
-        dev = _DeviceStream(cfg, nbins, devices[0])
-    flusher = _DeviceFlusher(hs, nbins, devices) if cfg.device_flush else None
+    with spans.span("stream.setup"):
+        devices = cfg.resolved_devices()
+        if len(devices) > 1:
+            dev = _ShardedDeviceStream(cfg, nbins, devices)
+        else:
+            dev = _DeviceStream(cfg, nbins, devices[0])
+        flusher = _DeviceFlusher(hs, nbins, devices) if cfg.device_flush else None
 
     def flush():
         # boss.go:112-128: flush is a no-op on an untouched spectrum;
@@ -594,26 +606,27 @@ def run_sketch_pipeline(
 
     def interval_flush(hist, counters, snap_states, origin):
         """One interval's flush, snapshot and checkpoint (flush worker)."""
-        if flusher is not None:
-            flusher.flush_from(hist)
+        with spans.span("flush.interval"):
+            if flusher is not None:
+                flusher.flush_from(hist)
+                if cfg.checkpoint_path:
+                    flusher.sync_cms()
+            flush()
+            if on_interval is not None:
+                snap = HULKData(filename=cfg.file_name, banner=cfg.banner_label)
+                snap.add(hs)
+                if cfg.interval_secondary:
+                    for obj in snap_states:
+                        if obj is not None:
+                            snap.add(obj)
+                on_interval(snap)
             if cfg.checkpoint_path:
-                flusher.sync_cms()
-        flush()
-        if on_interval is not None:
-            snap = HULKData(filename=cfg.file_name, banner=cfg.banner_label)
-            snap.add(hs)
-            if cfg.interval_secondary:
-                for obj in snap_states:
-                    if obj is not None:
-                        snap.add(obj)
-            on_interval(snap)
-        if cfg.checkpoint_path:
-            sc, lt, mc = counters
-            _save_checkpoint(
-                cfg.checkpoint_path, seq_count=sc, length_total=lt,
-                minimizer_count=mc, hs=hs, kmv=snap_states[0], khf=snap_states[1],
-                hmh=snap_states[2], cfg=cfg, origin=origin,
-            )
+                sc, lt, mc = counters
+                _save_checkpoint(
+                    cfg.checkpoint_path, seq_count=sc, length_total=lt,
+                    minimizer_count=mc, hs=hs, kmv=snap_states[0], khf=snap_states[1],
+                    hmh=snap_states[2], cfg=cfg, origin=origin,
+                )
 
     cut = cfg.interval if cfg.interval else None
     seek_resume = (
@@ -640,7 +653,9 @@ def run_sketch_pipeline(
         )
     if resume_base and not seek_resume:
         batches = _skip_resumed(batches, resume_base)
-    batches = prefetch_batches(batches, depth=2 * dev.GROUP)
+    batches = prefetch_batches(
+        batches, depth=2 * dev.GROUP, name="hulk-parse",
+        span_names=("input.parse", "stream.input_wait"))
 
     # The flush of an interval runs in one background worker, overlapped
     # with the next interval's streaming. One flush at most is in flight
@@ -652,80 +667,82 @@ def run_sketch_pipeline(
     # host and zeroes it before the hand-off) and deep copies of the host
     # sketch objects. Both threads issue device work to the same (default)
     # stream, so it runs in issue order.
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(1, thread_name_prefix="hulk-flush")
     pending = None
 
     def wait_flush():
         nonlocal pending
         if pending is not None:
-            t0 = time.perf_counter()
-            pending.result()
-            flush_stats["flush_waits"].append(time.perf_counter() - t0)
+            t0, t1 = spans.timed("stream.flush_wait", pending.result)
+            flush_stats["flush_waits"].append(t1 - t0)
             pending = None
 
     want_snap = bool(cfg.checkpoint_path) or (
         cfg.interval_secondary and on_interval is not None)
     last_origin = None
     try:
-        for batch in batches:
-            if batch.file_idx is not None:
-                last_origin = (batch.file_idx, batch.reads_in_file_end)
-            if isinstance(batch, LongRead):
-                # past the batched path's length cap (hulk_tpu's
-                # pipeline.py:1023-1052, which scans it blockwise into the
-                # host spectrum): the long-read step on the device
-                L = int(batch.codes.shape[0])
-                if L < w + k - 1:
-                    raise PipelineError("sequence length must be >= w + k - 1")
-                dev.long_read(batch.codes)
-                n_in_batch = 1
-                seq_count += 1
-                length_total += L
-            else:
-                active = batch.lengths > 0
-                if (short_read_mask(batch.lengths, k, w) & active).any():
-                    raise PipelineError("sequence length must be >= w + k - 1")
-                dev.feed(batch)
-                n_in_batch = int(active.sum())
-                seq_count += n_in_batch
-                length_total += int(batch.lengths.sum())
-            while seq_count >= next_report:
-                log.info("\tprocessed %d sequences", next_report)
-                next_report += 100_000
-            if cut is not None and seq_count % cut == 0 and n_in_batch > 0:
-                log.info("\treached interval %d -> histosketching", seq_count // cut)
-                wait_flush()
-                hist = None
-                if flusher is not None:
-                    hist = dev.take_hist()
+        with spans.span("stream.loop"):
+            for batch in batches:
+                if batch.file_idx is not None:
+                    last_origin = (batch.file_idx, batch.reads_in_file_end)
+                if isinstance(batch, LongRead):
+                    # past the batched path's length cap (hulk_tpu's
+                    # pipeline.py:1023-1052, which scans it blockwise into the
+                    # host spectrum): the long-read step on the device
+                    L = int(batch.codes.shape[0])
+                    if L < w + k - 1:
+                        raise PipelineError("sequence length must be >= w + k - 1")
+                    dev.long_read(batch.codes)
+                    n_in_batch = 1
+                    seq_count += 1
+                    length_total += L
                 else:
-                    dev.drain_into(spectrum)
-                snap_states = (kmv, khf, hmh)
-                if want_snap:
-                    # one device-state readback an interval
-                    snap_states = tuple(copy.deepcopy(o) for o in snap_states)
-                    dev.collect(*snap_states)
-                counters = None
-                if cfg.checkpoint_path:
-                    counters = (seq_count, length_total,
-                                minimizer_count + dev.minimizer_total())
-                pending = pool.submit(interval_flush, hist, counters, snap_states,
-                                      last_origin)
+                    active = batch.lengths > 0
+                    if (short_read_mask(batch.lengths, k, w) & active).any():
+                        raise PipelineError("sequence length must be >= w + k - 1")
+                    dev.feed(batch)
+                    n_in_batch = int(active.sum())
+                    seq_count += n_in_batch
+                    length_total += int(batch.lengths.sum())
+                while seq_count >= next_report:
+                    log.info("\tprocessed %d sequences", next_report)
+                    next_report += 100_000
+                if cut is not None and seq_count % cut == 0 and n_in_batch > 0:
+                    log.info("\treached interval %d -> histosketching", seq_count // cut)
+                    with spans.span("stream.boundary"):
+                        wait_flush()
+                        hist = None
+                        if flusher is not None:
+                            hist = dev.take_hist()
+                        else:
+                            dev.drain_into(spectrum)
+                        snap_states = (kmv, khf, hmh)
+                        if want_snap:
+                            # one device-state readback an interval
+                            snap_states = tuple(copy.deepcopy(o) for o in snap_states)
+                            dev.collect(*snap_states)
+                        counters = None
+                        if cfg.checkpoint_path:
+                            counters = (seq_count, length_total,
+                                        minimizer_count + dev.minimizer_total())
+                        pending = pool.submit(spans.carry(interval_flush), hist, counters,
+                                              snap_states, last_origin)
 
-        log.info("generating final histosketch of k-mer spectra...")
-        wait_flush()
-        if flusher is not None:
-            flusher.flush_from(dev.take_hist())
-            flusher.sync_cms()
-        else:
-            dev.drain_into(spectrum)
-        dev.collect(kmv, khf, hmh)
-        minimizer_count += dev.minimizer_total()
-        if multi_process:
-            seq_count, length_total, minimizer_count = _merge_processes(
-                spectrum, kmv, khf, hmh, (seq_count, length_total, minimizer_count),
-                cfg.sketch_size)
-        flush()
+        with spans.span("stream.finish"):
+            log.info("generating final histosketch of k-mer spectra...")
+            wait_flush()
+            if flusher is not None:
+                flusher.flush_from(dev.take_hist())
+                flusher.sync_cms()
+            else:
+                dev.drain_into(spectrum)
+            dev.collect(kmv, khf, hmh)
+            minimizer_count += dev.minimizer_total()
+            if multi_process:
+                seq_count, length_total, minimizer_count = _merge_processes(
+                    spectrum, kmv, khf, hmh, (seq_count, length_total, minimizer_count),
+                    cfg.sketch_size)
+            flush()
     finally:
         pool.shutdown(wait=False)
     if seq_count == 0:
