@@ -6,6 +6,7 @@ Builds hulkrt.cpp with g++ on first use into the package's build directory
   * GoRand + CWS table fill (native, ~50x faster than the Python generator)
   * hulk_flush_exact (the full exact flush loop)
   * hulk_pack_fastq (FASTQ line parser + code packer)
+  * hulk_inflate_members (gzip members inflated into caller-owned memory)
 
 Everything has a pure-Python fallback; `available()` reports whether the
 native library loaded.
@@ -42,7 +43,7 @@ def _load():
             tmp = so_path + f".tmp{os.getpid()}.so"
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-ffp-contract=off",
-                 "-fopenmp", "-shared", "-fPIC", "-o", tmp, _SRC, "-ldl"],
+                 "-fopenmp", "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True, capture_output=True,
             )
             os.replace(tmp, so_path)
@@ -92,11 +93,11 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p,
     ]
-    lib.hulk_gunzip_available.restype = ctypes.c_int32
-    lib.hulk_gunzip_available.argtypes = []
-    lib.hulk_gunzip.restype = ctypes.c_int64
-    lib.hulk_gunzip.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    lib.hulk_inflate_members.restype = ctypes.c_int64
+    lib.hulk_inflate_members.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
     ]
     lib.hulk_pack_group_batch.restype = None
     lib.hulk_pack_group_batch.argtypes = [
@@ -177,82 +178,34 @@ def flush_exact_native(bins, freqs, row_bins, cms, c_t, b_t, er_t, sketch,
     return True
 
 
-# ---- gzip decompression (libdeflate) ---------------------------------------
+# ---- gzip inflate -----------------------------------------------------------
 
-def gunzip_available() -> bool:
-    lib = _load()
-    return lib is not None and bool(lib.hulk_gunzip_available())
-
-
-# Grow-only persistent output buffer: faulting in a fresh multi-hundred-MB
-# allocation during decompression measures ~2 s extra on the first call (the
-# kernel zeroes every page serially on the decompressor's thread); reusing
-# one warm buffer — pre-touched in parallel on growth — keeps gunzip at
-# libdeflate speed (~700-800 MB/s here) from the first file on. Guarded by
-# _gunzip_lock: concurrent gunzip_bytes calls serialise on the buffer
-# instead of corrupting each other.
-import threading
-
-_gunzip_buf: np.ndarray | None = None
-_gunzip_lock = threading.Lock()
-
-
-def _gunzip_out(cap: int) -> np.ndarray:
-    # caller holds _gunzip_lock
-    global _gunzip_buf
-    if _gunzip_buf is None or _gunzip_buf.shape[0] < cap:
-        # round up to the next power of two with a small floor: page faults
-        # cost ~17 us each here (~1.3 s for 500 MB of 4 KB pages), so sizing
-        # from the first real input — instead of a fixed multi-hundred-MB
-        # floor — avoids retaining 512 MB for tiny .gz files while still
-        # paying each growth step's fault-in only once (pre-touched in
-        # parallel by hulk_touch_pages, off the decompressor's thread)
-        want = 64 << 20
-        while want < cap:
-            want *= 2
-        _gunzip_buf = np.empty(want, dtype=np.uint8)
-        _load().hulk_touch_pages(_ptr(_gunzip_buf), want)
-    return _gunzip_buf
+def inflate_members(src: np.ndarray, pos: int, out: np.ndarray,
+                    want: int) -> tuple[int, int, int]:
+    """Inflate whole gzip members of `src` (uint8) from offset `pos` into
+    `out`, until `out` holds at least `want` bytes or `src` ends
+    (hulk_inflate_members, hulkrt.cpp's own DEFLATE decoder; the GIL is
+    released meanwhile). Returns (bytes written, the offset of the first
+    member not inflated, the inflated size of the last member inflated).
+    Bytes written is -2 when the member at `pos` does not fit in `out`, -1
+    when it is not clean gzip (header, data, CRC-32 or size); the offset is
+    then that member's."""
+    for a in (src, out):
+        if a.dtype != np.uint8 or a.ndim != 1 or not a.flags.c_contiguous:
+            raise ValueError("inflate_members takes contiguous 1-D uint8 arrays")
+    if not 0 <= pos <= src.shape[0]:
+        raise ValueError(f"inflate_members: offset {pos} outside 0..{src.shape[0]}")
+    p, last = ctypes.c_int64(pos), ctypes.c_int64(0)
+    n = _load().hulk_inflate_members(
+        _ptr(src), src.shape[0], ctypes.byref(p), _ptr(out), out.shape[0],
+        want, ctypes.byref(last),
+    )
+    return int(n), p.value, last.value
 
 
-def gunzip_prefault(cap: int) -> None:
-    """Pre-fault the persistent gunzip output buffer to >= cap bytes (e.g.
-    from a warmup, so the first real file's decompression never page-faults
-    in-band)."""
-    if _load() is None:
-        return
-    with _gunzip_lock:
-        _gunzip_out(int(cap))
-
-
-def gunzip_bytes(data: bytes, copy: bool = True) -> np.ndarray | None:
-    """Whole-buffer gzip decompression via libdeflate (~3x zlib). Returns a
-    uint8 array, or None when libdeflate is unavailable or the data is not
-    clean gzip (caller falls back to the zlib streaming path). Output buffer
-    starts at 8x the compressed size and doubles on overflow (multi-member
-    and high-ratio inputs are handled by the native loop / the retry).
-
-    Thread safety: the shared output buffer is lock-guarded, so concurrent
-    copy=True calls are safe (the copy happens under the lock). copy=False
-    returns a view into the persistent module-level buffer that is
-    INVALIDATED by the next gunzip_bytes call from ANY thread — only for
-    single-threaded callers that fully consume (or copy out of) the result
-    before decompressing again."""
-    lib = _load()
-    if lib is None or not lib.hulk_gunzip_available():
-        return None
-    src = np.frombuffer(data, dtype=np.uint8)
-    cap = max(8 * src.shape[0], 1 << 20)
-    with _gunzip_lock:
-        while True:
-            out = _gunzip_out(cap)
-            n = lib.hulk_gunzip(_ptr(src), src.shape[0], _ptr(out), cap)
-            if n >= 0:
-                return out[:n].copy() if copy else out[:n]
-            if n == -2:
-                cap *= 2
-                continue
-            return None
+def touch_pages(a: np.ndarray) -> None:
+    """Fault a fresh array's pages in, in parallel (hulk_touch_pages)."""
+    _load().hulk_touch_pages(_ptr(a), a.nbytes)
 
 
 # ---- transfer-group packing ------------------------------------------------
@@ -591,7 +544,7 @@ class NativeFastaPacker:
         self._long_junk = 0
 
     def feed(self, chunk):
-        if isinstance(chunk, np.ndarray):  # whole-buffer gunzip path
+        if isinstance(chunk, np.ndarray):  # a view of an inflate buffer
             chunk = chunk.tobytes()
         data = self._leftover + chunk
         cut = data.rfind(b"\n") + 1

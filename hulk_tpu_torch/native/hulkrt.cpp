@@ -8,6 +8,8 @@
 //     (reference: histosketch.go newCWS via leesper/go_rng)
 //   * the exact histosketch flush (CMS scan + CWS update; reference:
 //     histosketch.go AddElement over a spectrum dump)
+//   * gzip inflate, member by member (the input's decompression; reference
+//     equivalent: Go's compress/gzip under the DataStreamer)
 //
 // Exactness: exp/log are operation-for-operation ports of Go's math.Exp/Log
 // (fdlibm lineage) so results are bit-identical to the Go reference and to
@@ -18,7 +20,6 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
-#include <dlfcn.h>
 #include <sys/mman.h>
 
 #ifdef _OPENMP
@@ -30,6 +31,9 @@ static inline int omp_get_thread_num() { return 0; }
 
 #if defined(__SSE2__)
 #include <xmmintrin.h>
+#endif
+#if defined(__x86_64__)
+#include <immintrin.h>
 #endif
 
 extern "C" {
@@ -332,58 +336,597 @@ void hulk_flush_exact(int64_t n, const int64_t* bins, const double* freqs,
 }
 
 // ---------------------------------------------------------------------------
-// gzip decompression via libdeflate (dlopen'd; ~2-3x zlib throughput)
+// gzip inflate (RFC 1951 DEFLATE in RFC 1952 members), member by member
 // ---------------------------------------------------------------------------
-// The input pipeline's host floor is gunzip (zlib ~320 MB/s measured vs the
-// parser's ~1.5 GB/s); libdeflate lifts it to ~1 GB/s. Whole-buffer API:
-// the caller passes the full compressed file and an output buffer; members
-// are looped (multi-member .gz is legal FASTQ practice). Returns the
-// decompressed size, -1 on corrupt data (caller falls back to zlib
-// streaming), or -2 when the output buffer is too small (caller doubles it).
+// The input pipeline's host floor is the inflate (zlib ~200-300 MB/s against
+// the parser's ~500 MB/s of FASTQ). This decoder takes zlib's place for whole
+// members held in memory: table-driven Huffman decoding from a 64-bit bit
+// buffer refilled 8 bytes at a time without a branch, up to three literals a
+// refill, matches copied 8 bytes at a time, and the member's CRC-32 by carry-
+// less multiplication. Each call walks one file's members into memory the
+// caller owns (multi-member .gz is legal FASTQ practice: bgzip's 64 KB
+// blocks, lanes joined with cat). Whatever it finds wrong -- a bad header,
+// code, distance, CRC-32 or size, a member cut short -- it reports and does
+// not guess: the caller then hands that member to zlib, whose verdict holds.
 
-struct libdeflate_decompressor;
-static struct libdeflate_decompressor* (*ld_alloc)(void) = nullptr;
-static int (*ld_gzip_ex)(struct libdeflate_decompressor*, const void*,
-                         size_t, void*, size_t, size_t*, size_t*) = nullptr;
-static int ld_tried = 0;
-static struct libdeflate_decompressor* ld_decomp = nullptr;
+// A decode table entry: bits 0-7 the bits to consume (the codeword and its
+// extra bits), bits 8-11 the codeword's own length (in a subtable, what is
+// left of it past the main table; in a subtable pointer, the subtable's
+// bits), bits 12-15 flags, bits 16-31 the value (a literal, a length or
+// distance base, a code-length symbol, or a subtable's start).
+enum : uint32_t {
+    INF_LITERAL = 1u << 12, INF_SUBTABLE = 1u << 13, INF_EOB = 1u << 14,
+    INF_BAD = 1u << 15,
+};
+static const int INF_LIT_BITS = 11, INF_DIST_BITS = 8, INF_PRE_BITS = 7;
+static const int INF_LIT_SIZE = (1 << INF_LIT_BITS) + 288 * (1 << (15 - INF_LIT_BITS));
+static const int INF_DIST_SIZE = (1 << INF_DIST_BITS) + 32 * (1 << (15 - INF_DIST_BITS));
+// a fast-loop step writes at most 3 literals or one match of 258, and a match
+// copy runs up to 7 bytes past its end
+static const int64_t INF_FAST_OUT = 258 + 16;
 
-static bool ld_init() {
-    if (!ld_tried) {
-        ld_tried = 1;
-        void* h = dlopen("libdeflate.so.0", RTLD_NOW | RTLD_LOCAL);
-        if (!h) h = dlopen("libdeflate.so", RTLD_NOW | RTLD_LOCAL);
-        if (h) {
-            ld_alloc = (struct libdeflate_decompressor * (*)(void))
-                dlsym(h, "libdeflate_alloc_decompressor");
-            ld_gzip_ex = (int (*)(struct libdeflate_decompressor*, const void*,
-                                  size_t, void*, size_t, size_t*, size_t*))
-                dlsym(h, "libdeflate_gzip_decompress_ex");
-            if (ld_alloc && ld_gzip_ex) ld_decomp = ld_alloc();
-        }
+enum { INF_OK = 0, INF_BAD_DATA = 1, INF_NO_ROOM = 3 };
+
+struct InfProto {
+    // an entry less its codeword length, for each symbol of each alphabet
+    uint32_t lit[288], dist[32], pre[19];
+    InfProto() {
+        static const uint16_t len_base[29] = {
+            3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43,
+            51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+        static const uint8_t len_extra[29] = {
+            0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4,
+            4, 4, 5, 5, 5, 5, 0};
+        static const uint16_t dist_base[30] = {
+            1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257,
+            385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289,
+            16385, 24577};
+        static const uint8_t dist_extra[30] = {
+            0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9,
+            10, 10, 11, 11, 12, 12, 13, 13};
+        for (int s = 0; s < 288; s++)
+            lit[s] = s < 256 ? ((uint32_t)s << 16 | INF_LITERAL)
+                   : s == 256 ? INF_EOB
+                   : s < 286 ? ((uint32_t)len_base[s - 257] << 16 | len_extra[s - 257])
+                   : INF_BAD;
+        for (int s = 0; s < 32; s++)
+            dist[s] = s < 30 ? ((uint32_t)dist_base[s] << 16 | dist_extra[s]) : INF_BAD;
+        for (int s = 0; s < 19; s++) pre[s] = (uint32_t)s << 16;
     }
-    return ld_decomp != nullptr;
+};
+
+static inline uint32_t inf_reverse(uint32_t code, int len) {
+    uint32_t r = 0;
+    for (int i = 0; i < len; i++, code >>= 1) r = (r << 1) | (code & 1);
+    return r;
 }
 
-int32_t hulk_gunzip_available() { return ld_init() ? 1 : 0; }
-
-int64_t hulk_gunzip(const uint8_t* in, int64_t in_n, uint8_t* out,
-                    int64_t cap) {
-    if (!ld_init()) return -1;
-    int64_t in_pos = 0, out_pos = 0;
-    while (in_pos < in_n) {
-        size_t a_in = 0, a_out = 0;
-        int r = ld_gzip_ex(ld_decomp, in + in_pos, (size_t)(in_n - in_pos),
-                           out + out_pos, (size_t)(cap - out_pos), &a_in, &a_out);
-        if (r == 3 /* INSUFFICIENT_SPACE */) return -2;
-        if (r != 0 /* SUCCESS */) return -1;
-        if (a_in == 0) return -1;  // no forward progress
-        in_pos += (int64_t)a_in;
-        out_pos += (int64_t)a_out;
-        // tolerate trailing NUL padding after the last member (some writers)
-        while (in_pos < in_n && in[in_pos] == 0) in_pos++;
+// Build a canonical Huffman decode table from code lengths (zlib's rules:
+// an over-subscribed set fails; an incomplete one only if it is a lone code
+// of one bit, or the precode; no codes at all leaves every entry bad).
+static bool inf_build(uint32_t* table, int bits, const uint8_t* lens, int nsyms,
+                      const uint32_t* proto, bool precode) {
+    int count[16] = {0};
+    for (int s = 0; s < nsyms; s++) count[lens[s]]++;
+    count[0] = 0;
+    int max_len = 0;
+    for (int l = 1; l < 16; l++) if (count[l]) max_len = l;
+    for (int i = 0; i < (1 << bits); i++) table[i] = INF_BAD;
+    if (max_len == 0) return !precode;
+    int left = 1;
+    for (int l = 1; l < 16; l++) {
+        left = (left << 1) - count[l];
+        if (left < 0) return false;
     }
-    return out_pos;
+    if (left > 0 && (precode || max_len != 1)) return false;
+    int offs[16];
+    offs[1] = 0;
+    for (int l = 1; l < 15; l++) offs[l + 1] = offs[l] + count[l];
+    uint16_t sorted[288];
+    for (int s = 0; s < nsyms; s++)
+        if (lens[s]) sorted[offs[lens[s]]++] = (uint16_t)s;
+    uint32_t code = 0, prefix = ~0u;
+    int idx = 0, next_sub = 1 << bits, sub_start = 0, sub_bits = 0;
+    for (int len = 1; len <= max_len; len++, code <<= 1) {
+        for (int k = count[len]; k > 0; k--, code++) {
+            const uint32_t pe = proto[sorted[idx++]];
+            if (len <= bits) {
+                const uint32_t e = pe + ((uint32_t)len << 8) + (uint32_t)len;
+                for (uint32_t i = inf_reverse(code, len); i < (1u << bits); i += 1u << len)
+                    table[i] = e;
+            } else {
+                const int sl = len - bits;
+                if ((code >> sl) != prefix) {
+                    // a new subtable, sized by zlib's rule over the codes left
+                    prefix = code >> sl;
+                    int cur = sl, room = 1 << cur;
+                    while (cur + bits < max_len) {
+                        room -= count[cur + bits];
+                        if (room <= 0) break;
+                        cur++;
+                        room <<= 1;
+                    }
+                    sub_start = next_sub;
+                    sub_bits = cur;
+                    next_sub += 1 << cur;
+                    for (int i = 0; i < (1 << cur); i++) table[sub_start + i] = INF_BAD;
+                    table[inf_reverse(prefix, bits)] =
+                        (uint32_t)sub_start << 16 | INF_SUBTABLE | (uint32_t)cur << 8;
+                }
+                const uint32_t e = pe + ((uint32_t)sl << 8) + (uint32_t)sl;
+                for (uint32_t i = inf_reverse(code & ((1u << sl) - 1), sl);
+                     i < (1u << sub_bits); i += 1u << sl)
+                    table[sub_start + i] = e;
+            }
+            count[len]--;  // what is left of each length sizes later subtables
+        }
+        count[len] = 0;
+    }
+    return true;
+}
+
+static const InfProto& inf_proto() {
+    static const InfProto p;
+    return p;
+}
+
+struct InfFixed {
+    uint32_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE];
+    InfFixed() {
+        uint8_t lens[288];
+        for (int s = 0; s < 288; s++) lens[s] = s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+        inf_build(lit, INF_LIT_BITS, lens, 288, inf_proto().lit, false);
+        for (int s = 0; s < 32; s++) lens[s] = 5;
+        inf_build(dist, INF_DIST_BITS, lens, 32, inf_proto().dist, false);
+    }
+};
+
+static const InfFixed& inf_fixed() {
+    static const InfFixed f;
+    return f;
+}
+
+struct Inflater {
+    uint32_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE], pre[1 << INF_PRE_BITS];
+};
+
+static inline uint64_t inf_load64(const uint8_t* p) {
+    uint64_t v;
+    memcpy(&v, p, 8);
+    return v;
+}
+
+static inline void inf_store64(uint8_t* p, uint64_t v) { memcpy(p, &v, 8); }
+
+// One DEFLATE stream from in[0, in_n) into out[0, out_n): INF_OK with the
+// bytes read and written, INF_BAD_DATA, or INF_NO_ROOM.
+static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
+                          uint8_t* out, int64_t out_n, int64_t* in_used,
+                          int64_t* out_used) {
+    const uint8_t* ip = in;
+    const uint8_t* const ie = in + in_n;
+    uint8_t* op = out;
+    uint8_t* const oe = out + out_n;
+    // bits [0, bl) of bb are the next bits of the stream; bits above bl are
+    // zero or the bits that follow. `over` counts zero bytes appended past
+    // the input's end (a stream that ends reads ahead of its last bit).
+    uint64_t bb = 0;
+    uint32_t bl = 0;
+    int64_t over = 0;
+    const InfFixed& fixed = inf_fixed();
+    const InfProto& proto = inf_proto();
+
+#define INF_REFILL_SLOW()                                        \
+    do {                                                         \
+        while (bl < 56) {                                        \
+            uint64_t byte_ = 0;                                  \
+            if (ip < ie) byte_ = *ip++;                          \
+            else if (++over > 8) return INF_BAD_DATA;            \
+            bb |= byte_ << bl;                                   \
+            bl += 8;                                             \
+        }                                                        \
+    } while (0)
+    // needs ie - ip >= 8 and over == 0
+#define INF_REFILL_FAST()                                        \
+    do {                                                         \
+        bb |= inf_load64(ip) << bl;                              \
+        ip += (63 - bl) >> 3;                                    \
+        bl |= 56;                                                \
+    } while (0)
+#define INF_CONSUME(e_)                                          \
+    do {                                                         \
+        bb >>= (e_) & 0xff;                                      \
+        bl -= (e_) & 0xff;                                       \
+    } while (0)
+#define INF_VALUE(e_)                                            \
+    (((e_) >> 16) + (uint32_t)((bb & ((1ull << ((e_) & 0xff)) - 1)) >> (((e_) >> 8) & 15)))
+#define INF_SUB(t_, e_)                                          \
+    (t_)[((e_) >> 16) + (bb & ((1u << (((e_) >> 8) & 15)) - 1))]
+
+    for (;;) {
+        INF_REFILL_SLOW();
+        const uint32_t bfinal = bb & 1, btype = (bb >> 1) & 3;
+        bb >>= 3;
+        bl -= 3;
+        if (btype == 0) {  // stored
+            bb >>= bl & 7;
+            bl -= bl & 7;
+            const int64_t back = (int64_t)(bl >> 3);
+            if (back < over) return INF_BAD_DATA;
+            const uint8_t* p = ip - (back - over);
+            if (ie - p < 4) return INF_BAD_DATA;
+            const uint32_t len = p[0] | (uint32_t)p[1] << 8;
+            if ((p[2] | (uint32_t)p[3] << 8) != (~len & 0xffff)) return INF_BAD_DATA;
+            p += 4;
+            if (ie - p < (int64_t)len) return INF_BAD_DATA;
+            if (oe - op < (int64_t)len) return INF_NO_ROOM;
+            memcpy(op, p, len);
+            op += len;
+            ip = p + len;
+            bb = 0;
+            bl = 0;
+            over = 0;
+            if (bfinal) break;
+            continue;
+        }
+        if (btype == 3) return INF_BAD_DATA;
+        const uint32_t* L = fixed.lit;
+        const uint32_t* D = fixed.dist;
+        if (btype == 2) {  // dynamic: the code lengths, themselves coded
+            static const uint8_t order[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
+                                              11, 4, 12, 3, 13, 2, 14, 1, 15};
+            const uint32_t hlit = (bb & 31) + 257, hdist = ((bb >> 5) & 31) + 1,
+                           hclen = ((bb >> 10) & 15) + 4;
+            bb >>= 14;
+            bl -= 14;
+            if (hlit > 286 || hdist > 30) return INF_BAD_DATA;
+            uint8_t lens[288 + 32] = {0};
+            for (uint32_t i = 0; i < hclen; i++) {
+                if (bl < 3) INF_REFILL_SLOW();
+                lens[order[i]] = bb & 7;
+                bb >>= 3;
+                bl -= 3;
+            }
+            if (!inf_build(st->pre, INF_PRE_BITS, lens, 19, proto.pre, true))
+                return INF_BAD_DATA;
+            memset(lens, 0, 19);
+            const uint32_t total = hlit + hdist;
+            uint8_t cl[288 + 32] = {0};
+            for (uint32_t n = 0; n < total;) {
+                if (bl < 14) INF_REFILL_SLOW();
+                const uint32_t e = st->pre[bb & ((1u << INF_PRE_BITS) - 1)];
+                if (e & INF_BAD) return INF_BAD_DATA;
+                INF_CONSUME(e);
+                const uint32_t sym = e >> 16;
+                if (sym < 16) {
+                    cl[n++] = (uint8_t)sym;
+                    continue;
+                }
+                uint32_t rep;
+                uint8_t val = 0;
+                if (sym == 16) {
+                    if (n == 0) return INF_BAD_DATA;
+                    val = cl[n - 1];
+                    rep = 3 + (bb & 3);
+                    bb >>= 2;
+                    bl -= 2;
+                } else if (sym == 17) {
+                    rep = 3 + (bb & 7);
+                    bb >>= 3;
+                    bl -= 3;
+                } else {
+                    rep = 11 + (bb & 127);
+                    bb >>= 7;
+                    bl -= 7;
+                }
+                if (n + rep > total) return INF_BAD_DATA;
+                memset(cl + n, val, rep);
+                n += rep;
+            }
+            if (cl[256] == 0) return INF_BAD_DATA;  // no end-of-block code
+            memcpy(lens, cl, hlit);
+            memset(lens + hlit, 0, 288 - hlit);
+            if (!inf_build(st->lit, INF_LIT_BITS, lens, 288, proto.lit, false))
+                return INF_BAD_DATA;
+            uint8_t dl[32] = {0};
+            memcpy(dl, cl + hlit, hdist);
+            if (!inf_build(st->dist, INF_DIST_BITS, dl, 32, proto.dist, false))
+                return INF_BAD_DATA;
+            L = st->lit;
+            D = st->dist;
+        }
+        const uint64_t lmask = (1u << INF_LIT_BITS) - 1, dmask = (1u << INF_DIST_BITS) - 1;
+        for (;;) {
+            if (ie - ip >= 8 && oe - op >= INF_FAST_OUT && over == 0) {
+                // the fast loop: every step starts with >= 56 bits buffered,
+                // enough for a length (20 bits at most) and a distance (28)
+                INF_REFILL_FAST();
+                uint32_t e = L[bb & lmask];
+                for (;;) {
+                    if (e & INF_LITERAL) {
+                        // a main-table literal takes 11 bits at most: three
+                        // fit in one refill
+                        INF_CONSUME(e);
+                        *op++ = (uint8_t)(e >> 16);
+                        e = L[bb & lmask];
+                        if (e & INF_LITERAL) {
+                            INF_CONSUME(e);
+                            *op++ = (uint8_t)(e >> 16);
+                            e = L[bb & lmask];
+                            if (e & INF_LITERAL) {
+                                INF_CONSUME(e);
+                                *op++ = (uint8_t)(e >> 16);
+                                e = L[bb & lmask];
+                            }
+                        }
+                        if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
+                        INF_REFILL_FAST();
+                        continue;
+                    }
+                    if (e & INF_SUBTABLE) {
+                        bb >>= INF_LIT_BITS;
+                        bl -= INF_LIT_BITS;
+                        e = INF_SUB(L, e);
+                        if (e & INF_LITERAL) {
+                            INF_CONSUME(e);
+                            *op++ = (uint8_t)(e >> 16);
+                            if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
+                            INF_REFILL_FAST();
+                            e = L[bb & lmask];
+                            continue;
+                        }
+                    }
+                    if (e & (INF_EOB | INF_BAD)) {
+                        if (e & INF_BAD) return INF_BAD_DATA;
+                        INF_CONSUME(e);
+                        goto block_done;
+                    }
+                    const uint32_t len = INF_VALUE(e);
+                    INF_CONSUME(e);
+                    uint32_t d = D[bb & dmask];
+                    if (d & INF_SUBTABLE) {
+                        bb >>= INF_DIST_BITS;
+                        bl -= INF_DIST_BITS;
+                        d = INF_SUB(D, d);
+                    }
+                    if (d & INF_BAD) return INF_BAD_DATA;
+                    const uint32_t dist = INF_VALUE(d);
+                    INF_CONSUME(d);
+                    if ((int64_t)dist > op - out) return INF_BAD_DATA;
+                    const uint8_t* src = op - dist;
+                    uint8_t* dst = op;
+                    op += len;
+                    if (dist >= 8) {
+                        do {
+                            inf_store64(dst, inf_load64(src));
+                            src += 8;
+                            dst += 8;
+                        } while (dst < op);
+                    } else if (dist == 1) {
+                        const uint64_t v = 0x0101010101010101ull * src[0];
+                        do {
+                            inf_store64(dst, v);
+                            dst += 8;
+                        } while (dst < op);
+                    } else {
+                        do *dst++ = *src++; while (dst < op);
+                    }
+                    if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
+                    INF_REFILL_FAST();
+                    e = L[bb & lmask];
+                }
+            }
+            // one symbol at a time near either end
+            INF_REFILL_SLOW();
+            uint32_t e = L[bb & lmask];
+            if (e & INF_SUBTABLE) {
+                bb >>= INF_LIT_BITS;
+                bl -= INF_LIT_BITS;
+                e = INF_SUB(L, e);
+            }
+            if (e & INF_LITERAL) {
+                if (op == oe) return INF_NO_ROOM;
+                INF_CONSUME(e);
+                *op++ = (uint8_t)(e >> 16);
+                continue;
+            }
+            if (e & (INF_EOB | INF_BAD)) {
+                if (e & INF_BAD) return INF_BAD_DATA;
+                INF_CONSUME(e);
+                break;
+            }
+            const uint32_t len = INF_VALUE(e);
+            INF_CONSUME(e);
+            uint32_t d = D[bb & dmask];
+            if (d & INF_SUBTABLE) {
+                bb >>= INF_DIST_BITS;
+                bl -= INF_DIST_BITS;
+                d = INF_SUB(D, d);
+            }
+            if (d & INF_BAD) return INF_BAD_DATA;
+            const uint32_t dist = INF_VALUE(d);
+            INF_CONSUME(d);
+            if ((int64_t)dist > op - out) return INF_BAD_DATA;
+            if (oe - op < (int64_t)len) return INF_NO_ROOM;
+            for (uint32_t i = 0; i < len; i++, op++) *op = *(op - dist);
+        }
+    block_done:
+        if (bfinal) break;
+    }
+    {
+        const int64_t back = (int64_t)(bl >> 3);
+        if (back < over) return INF_BAD_DATA;  // the stream ran past the input
+        *in_used = (ip - (back - over)) - in;
+        *out_used = op - out;
+    }
+    return INF_OK;
+#undef INF_REFILL_SLOW
+#undef INF_REFILL_FAST
+#undef INF_CONSUME
+#undef INF_VALUE
+#undef INF_SUB
+}
+
+// CRC-32 (gzip's, the reflected polynomial 0xEDB88320): 16-byte blocks folded
+// by carry-less multiplication (Intel's "Fast CRC Computation Using PCLMULQDQ",
+// the bit-reflected constants), the tail a byte at a time.
+static uint32_t inf_crc_table[256];
+static bool inf_crc_init() {
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; k++) c = (c & 1) ? (c >> 1) ^ 0xEDB88320u : c >> 1;
+        inf_crc_table[i] = c;
+    }
+    return true;
+}
+
+#if defined(__x86_64__)
+// the state (the CRC's complement) after len bytes, len >= 64 and a multiple
+// of 16
+__attribute__((target("pclmul,sse4.1")))
+static uint32_t inf_crc_fold(const uint8_t* buf, int64_t len, uint32_t crc) {
+    alignas(16) static const uint64_t k1k2[2] = {0x0154442bd4ull, 0x01c6e41596ull};
+    alignas(16) static const uint64_t k3k4[2] = {0x01751997d0ull, 0x00ccaa009eull};
+    alignas(16) static const uint64_t k5k0[2] = {0x0163cd6124ull, 0x0000000000ull};
+    alignas(16) static const uint64_t poly[2] = {0x01db710641ull, 0x01f7011641ull};
+    __m128i x0, x1, x2, x3, x4, x5, x6, x7, x8, y5, y6, y7, y8;
+    x1 = _mm_loadu_si128((const __m128i*)(buf + 0x00));
+    x2 = _mm_loadu_si128((const __m128i*)(buf + 0x10));
+    x3 = _mm_loadu_si128((const __m128i*)(buf + 0x20));
+    x4 = _mm_loadu_si128((const __m128i*)(buf + 0x30));
+    x1 = _mm_xor_si128(x1, _mm_cvtsi32_si128((int)crc));
+    x0 = _mm_load_si128((const __m128i*)k1k2);
+    buf += 64;
+    len -= 64;
+    while (len >= 64) {
+        x5 = _mm_clmulepi64_si128(x1, x0, 0x00);
+        x6 = _mm_clmulepi64_si128(x2, x0, 0x00);
+        x7 = _mm_clmulepi64_si128(x3, x0, 0x00);
+        x8 = _mm_clmulepi64_si128(x4, x0, 0x00);
+        x1 = _mm_clmulepi64_si128(x1, x0, 0x11);
+        x2 = _mm_clmulepi64_si128(x2, x0, 0x11);
+        x3 = _mm_clmulepi64_si128(x3, x0, 0x11);
+        x4 = _mm_clmulepi64_si128(x4, x0, 0x11);
+        y5 = _mm_loadu_si128((const __m128i*)(buf + 0x00));
+        y6 = _mm_loadu_si128((const __m128i*)(buf + 0x10));
+        y7 = _mm_loadu_si128((const __m128i*)(buf + 0x20));
+        y8 = _mm_loadu_si128((const __m128i*)(buf + 0x30));
+        x1 = _mm_xor_si128(_mm_xor_si128(x1, x5), y5);
+        x2 = _mm_xor_si128(_mm_xor_si128(x2, x6), y6);
+        x3 = _mm_xor_si128(_mm_xor_si128(x3, x7), y7);
+        x4 = _mm_xor_si128(_mm_xor_si128(x4, x8), y8);
+        buf += 64;
+        len -= 64;
+    }
+    x0 = _mm_load_si128((const __m128i*)k3k4);
+    x5 = _mm_clmulepi64_si128(x1, x0, 0x00);
+    x1 = _mm_clmulepi64_si128(x1, x0, 0x11);
+    x1 = _mm_xor_si128(_mm_xor_si128(x1, x2), x5);
+    x5 = _mm_clmulepi64_si128(x1, x0, 0x00);
+    x1 = _mm_clmulepi64_si128(x1, x0, 0x11);
+    x1 = _mm_xor_si128(_mm_xor_si128(x1, x3), x5);
+    x5 = _mm_clmulepi64_si128(x1, x0, 0x00);
+    x1 = _mm_clmulepi64_si128(x1, x0, 0x11);
+    x1 = _mm_xor_si128(_mm_xor_si128(x1, x4), x5);
+    while (len >= 16) {
+        x2 = _mm_loadu_si128((const __m128i*)buf);
+        x5 = _mm_clmulepi64_si128(x1, x0, 0x00);
+        x1 = _mm_clmulepi64_si128(x1, x0, 0x11);
+        x1 = _mm_xor_si128(_mm_xor_si128(x1, x2), x5);
+        buf += 16;
+        len -= 16;
+    }
+    // 128 bits to 64, then Barrett's reduction to 32
+    x2 = _mm_clmulepi64_si128(x1, x0, 0x10);
+    x3 = _mm_setr_epi32(~0, 0, ~0, 0);
+    x1 = _mm_srli_si128(x1, 8);
+    x1 = _mm_xor_si128(x1, x2);
+    x0 = _mm_loadl_epi64((const __m128i*)k5k0);
+    x2 = _mm_srli_si128(x1, 4);
+    x1 = _mm_and_si128(x1, x3);
+    x1 = _mm_clmulepi64_si128(x1, x0, 0x00);
+    x1 = _mm_xor_si128(x1, x2);
+    x0 = _mm_load_si128((const __m128i*)poly);
+    x2 = _mm_and_si128(x1, x3);
+    x2 = _mm_clmulepi64_si128(x2, x0, 0x10);
+    x2 = _mm_and_si128(x2, x3);
+    x2 = _mm_clmulepi64_si128(x2, x0, 0x00);
+    x1 = _mm_xor_si128(x1, x2);
+    return (uint32_t)_mm_extract_epi32(x1, 1);
+}
+#endif
+
+static uint32_t inf_crc32(const uint8_t* p, int64_t n) {
+    static const bool table_ready = inf_crc_init();
+    (void)table_ready;
+    uint32_t c = 0xFFFFFFFFu;
+#if defined(__x86_64__)
+    static const bool clmul = __builtin_cpu_supports("pclmul") && __builtin_cpu_supports("sse4.1");
+    if (clmul && n >= 64) {
+        const int64_t m = n & ~(int64_t)15;
+        c = inf_crc_fold(p, m, c);
+        p += m;
+        n -= m;
+    }
+#endif
+    for (int64_t i = 0; i < n; i++) c = inf_crc_table[(c ^ p[i]) & 0xff] ^ (c >> 8);
+    return ~c;
+}
+
+// Inflate whole gzip members from in[*pos, in_n) into out[0, cap), member
+// after member, until out holds at least `want` bytes or the input ends.
+// NUL padding after a member is skipped (some writers pad the file). Returns
+// the bytes written and leaves *pos at the first member not inflated; *last
+// gets the inflated size of the last member inflated. A member that does not
+// fit, or is not clean gzip (its header, data, CRC-32 or size), ends the call
+// there; if it is the first, the call returns -2 (does not fit) or -1 (not
+// clean gzip) and *pos is that member's offset. Each call has its own
+// decoder state, so threads may inflate at once.
+int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
+                             uint8_t* out, int64_t cap, int64_t want,
+                             int64_t* last) {
+    Inflater* st = new Inflater;
+    int64_t p = *pos, n = 0, rc = 0;
+    while (p < in_n && n < want) {
+        int r = INF_BAD_DATA;
+        int64_t q = p + 10, used_in = 0, used_out = 0;
+        const uint8_t* h = in + p;
+        if (in_n - p >= 18 && h[0] == 0x1f && h[1] == 0x8b && h[2] == 8 &&
+            !(h[3] & 0xe0)) {
+            const uint8_t flg = h[3];
+            if ((flg & 4) && in_n - q >= 2) q += 2 + (in[q] | (int64_t)in[q + 1] << 8);
+            else if (flg & 4) q = in_n;
+            for (int bit = 8; bit <= 16; bit <<= 1) {
+                if (!(flg & bit)) continue;
+                while (q < in_n && in[q]) q++;
+                q++;
+            }
+            if (flg & 2) q += 2;
+            if (q < in_n)
+                r = inflate_stream(st, in + q, in_n - q, out + n, cap - n,
+                                   &used_in, &used_out);
+        }
+        if (r == INF_OK) {
+            q += used_in;
+            if (in_n - q < 8 ||
+                (in[q] | (uint32_t)in[q + 1] << 8 | (uint32_t)in[q + 2] << 16 |
+                 (uint32_t)in[q + 3] << 24) != inf_crc32(out + n, used_out) ||
+                (in[q + 4] | (uint32_t)in[q + 5] << 8 | (uint32_t)in[q + 6] << 16 |
+                 (uint32_t)in[q + 7] << 24) != (uint32_t)used_out)
+                r = INF_BAD_DATA;
+        }
+        if (r != INF_OK) {
+            if (n == 0 && rc == 0) rc = (r == INF_NO_ROOM) ? -2 : -1;
+            break;
+        }
+        p = q + 8;
+        n += used_out;
+        *last = used_out;
+        while (p < in_n && in[p] == 0) p++;
+    }
+    delete st;
+    *pos = p;
+    return rc < 0 ? rc : n;
 }
 
 // ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ compiles once per bucket rather than per batch.
 from __future__ import annotations
 
 import gzip
+import mmap
+import os
 import sys
+import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Iterable, Iterator
 
@@ -66,35 +70,38 @@ def prefetch_batches(batches, depth: int, name: str, span_names: tuple):
 
     The caller names the thread and its two spans (hulk_tpu_torch.spans):
     each next() of the iterator in the thread and each get in the consumer,
-    in that order in span_names.
+    in that order in span_names. A step span of None leaves the spans of the
+    thread's work to the iterator itself.
     """
     import queue
-    import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     stop = threading.Event()
     step, get = span_names
 
+    def put(b) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(b, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def worker():
         try:
             it = iter(batches)
             while True:
-                with spans.span(step):
+                with spans.span(step) if step else nullcontext():
                     b = next(it, done)
                 if b is done:
                     break
-                while not stop.is_set():
-                    try:
-                        q.put(b, timeout=0.2)
-                        break
-                    except queue.Full:
-                        continue
-                if stop.is_set():
+                if not put(b):
                     return
-            q.put(done)
+            put(done)
         except BaseException as e:  # propagate to the consumer
-            q.put(e)
+            put(e)
 
     t = threading.Thread(target=spans.carry(worker), daemon=True, name=name)
     t.start()
@@ -169,12 +176,14 @@ DEFAULT_LENGTH_BUCKETS = (
 )
 
 
-def _skip_lines(chunks: Iterator[bytes], n_lines: int) -> Iterator[bytes]:
+def _skip_lines(chunks: Iterator[bytes], n_lines: int, drop=None) -> Iterator[bytes]:
     """Drop the first n_lines newline-terminated lines of a decompressed
     chunk stream by COUNTING newlines (memchr speed, no parsing) — the
     seek path for checkpoint resume. gzip itself is not random-accessible,
     so .gz inputs still decompress the skipped prefix; everything else
-    (parse, pack, batch, transfer, device) is skipped."""
+    (parse, pack, batch, transfer, device) is skipped. `drop`, when given,
+    is called with each chunk that is skipped whole (a pool buffer goes
+    back)."""
     remaining = n_lines
     for c in chunks:
         if remaining:
@@ -182,13 +191,151 @@ def _skip_lines(chunks: Iterator[bytes], n_lines: int) -> Iterator[bytes]:
             nl = np.flatnonzero(buf == 0x0A)
             if nl.shape[0] < remaining:
                 remaining -= int(nl.shape[0])
-                continue
-            cut = int(nl[remaining - 1]) + 1
-            remaining = 0
-            if cut < len(c):
-                yield c[cut:]
+            else:
+                cut = int(nl[remaining - 1]) + 1
+                remaining = 0
+                if cut < len(c):
+                    yield c[cut:]
+                    continue
+            if drop is not None:
+                drop(c)
         else:
             yield c
+
+
+# The inflate of a .gz: whole gzip members in the native inflater
+# (native.inflate_members), a few MB a step, into a per-file pool of output
+# buffers (_InflatePool). A member whose inflated size passes _INFLATE_CAP
+# (what the old whole-file route could allocate: 8x a 128 MB file), and a
+# file whose gzip trailer says its last member does, take zlib instead, from
+# that member on.
+_INFLATE_CAP = 1 << 30
+_INFLATE_MIN = 32 << 20  # a pool buffer's least size
+_INFLATE_STEP = 4 << 20  # a step inflates whole members until it holds this
+_PREFETCH = 4  # inflated chunks queued ahead of the parse
+
+# the pool buffers not lent out, shared by every file and job: they only
+# grow, and are pre-touched once (a fresh one page-faults at ~17 us a page)
+_free_bufs: list = []
+_free_lock = threading.Lock()
+
+
+def _new_buffer(nbytes: int) -> np.ndarray:
+    from hulk_tpu_torch import native
+
+    buf = np.empty(nbytes, dtype=np.uint8)
+    native.touch_pages(buf)
+    return buf
+
+
+class _InflatePool:
+    """At most `n` output buffers lent out to one file's inflate at a time.
+    The consumer gives each chunk back once the packer is done with it;
+    only then may the inflate write into that buffer again. close() wakes
+    an inflate that waits for a buffer (the consumer has left); buffers
+    still lent out then are dropped, never reused."""
+
+    def __init__(self, n: int):
+        self._slots = threading.Semaphore(n)
+        self._lent: dict = {}
+        self._closed = False
+
+    def take(self, nbytes: int) -> np.ndarray | None:
+        """A buffer of at least nbytes; None once closed."""
+        while not self._slots.acquire(timeout=0.2):
+            if self._closed:
+                return None
+        with _free_lock:
+            buf = _free_bufs.pop() if _free_bufs else None
+        if buf is None or buf.shape[0] < nbytes:
+            buf = _new_buffer(nbytes)
+        self._lent[id(buf)] = buf
+        return buf
+
+    def grow(self, buf: np.ndarray, nbytes: int) -> np.ndarray:
+        """A buffer of nbytes in the place of the lent-out buf."""
+        del self._lent[id(buf)]
+        buf = _new_buffer(nbytes)
+        self._lent[id(buf)] = buf
+        return buf
+
+    def give(self, chunk) -> None:
+        """Take back the buffer chunk lies in (a view of it); a chunk of
+        bytes (the zlib route, a plain file) holds no buffer."""
+        while isinstance(chunk, np.ndarray):
+            buf = self._lent.pop(id(chunk), None)
+            if buf is not None:
+                with _free_lock:
+                    _free_bufs.append(buf)
+                self._slots.release()
+                return
+            chunk = chunk.base
+
+    def close(self) -> None:
+        self._closed = True
+
+
+def _chunks_of(path: str, pool: _InflatePool) -> Iterator:
+    """The decompressed bytes of one input file, a step at a time, each step
+    an `input.gunzip` span. A .gz inflates member by member in the native
+    inflater into pool buffers, and yields views of them; zlib (Python's
+    gzip) takes over from a member too large for _INFLATE_CAP, or from the
+    start when the gzip trailer's size (ISIZE, the last member's, mod 2**32)
+    passes it, and from a member the native inflater finds bad, so that a
+    bad file raises what Python's gzip raises. The counters
+    `input.inflate_member_bytes` and `input.inflate_zlib_bytes` count each
+    route's inflated bytes."""
+    from hulk_tpu_torch import native
+
+    if not path.endswith(".gz"):
+        with open(path, "rb") as fh:
+            yield from _read_chunks(fh)
+        return
+    pos = 0
+    size = os.path.getsize(path)
+    if size and native.available():
+        with open(path, "rb") as fh:
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        mm.madvise(mmap.MADV_SEQUENTIAL)
+        src = np.frombuffer(mm, dtype=np.uint8)
+        last = int.from_bytes(mm[-4:], "little") if size >= 18 else 0
+        if last <= _INFLATE_CAP:
+            while pos < size:
+                buf = pool.take(min(_INFLATE_CAP, max(_INFLATE_MIN, 2 * last)))
+                if buf is None:
+                    return
+                with spans.span("input.gunzip"):
+                    n, at, got = native.inflate_members(
+                        src, pos, buf[:_INFLATE_CAP], _INFLATE_STEP)
+                    if n == -2 and buf.shape[0] < _INFLATE_CAP:
+                        buf = pool.grow(buf, _INFLATE_CAP)
+                        n, at, got = native.inflate_members(src, pos, buf, _INFLATE_STEP)
+                pos = at
+                if n < 0:
+                    pool.give(buf)
+                    break
+                spans.count("input.inflate_member_bytes", n)
+                last = got
+                yield buf[:n]
+            else:
+                return
+    with open(path, "rb") as fh:
+        fh.seek(pos)
+        yield from _read_chunks(gzip.GzipFile(fileobj=fh, mode="rb"),
+                                "input.inflate_zlib_bytes")
+
+
+def _read_chunks(f, counter: str | None = None) -> Iterator[bytes]:
+    """4 MB reads of an open file, each an `input.gunzip` span, their bytes
+    counted under `counter` when given."""
+    while True:
+        with spans.span("input.gunzip"):
+            chunk = f.read(1 << 22)
+        if not chunk:
+            return
+        if counter:
+            spans.count(counter, len(chunk))
+        yield chunk
 
 
 def batch_reads_native(
@@ -306,60 +453,33 @@ def batch_reads_native(
             yield from finish(codes[start : start + take], lengths[start : start + take])
             start += take
 
-    # whole-buffer libdeflate fast path for .gz up to this compressed size
-    # (~3x zlib; raw output is typically 3-8x compressed, kept in memory);
-    # larger files take the memory-bounded zlib streaming path
-    _LIBDEFLATE_MAX_COMPRESSED = 128 << 20
-
-    def chunks_of(path):
-        import os as _os
-
-        if (
-            path.endswith(".gz")
-            and _os.path.getsize(path) <= _LIBDEFLATE_MAX_COMPRESSED
-        ):
-            from hulk_tpu_torch import native as _native
-
-            if _native.available() and _native.gunzip_available():
-                with open(path, "rb") as fh:
-                    comp = fh.read()
-                # copy=False: the persistent-buffer view is fully consumed
-                # by the parser before the next gunzip call (files parse
-                # sequentially; the prefetch wrapper is per-file). Yielded
-                # as ONE ndarray so the packer parses it zero-copy in a
-                # single OMP call — byte-chunk feeding costs ~3 full-stream
-                # copies (concat, cut-slice, tobytes).
-                decomp = _native.gunzip_bytes(comp, copy=False)
-                if decomp is not None:
-                    yield decomp
-                    return
-                # not clean gzip: fall through to the zlib streaming path
-        fh = gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
-        with fh:
-            while True:
-                chunk = fh.read(1 << 22)
-                if not chunk:
-                    return
-                yield chunk
-
     for fi, p in enumerate(paths):
         if fi < start_file:
             continue
         cur_file = fi
         if fi > start_file:
             file_emitted = 0
-        chunk_src = chunks_of(p)
+        # the inflate in its own thread (the native inflater and zlib
+        # release the GIL), overlapped with native packing here; its
+        # buffers come back to the pool once the packer is done with each
+        # chunk
+        pool = _InflatePool(_PREFETCH + 2)
+        chunk_src = _chunks_of(p, pool)
         if fi == start_file and skip_reads:
-            chunk_src = _skip_lines(chunk_src, 4 * skip_reads)
-        # decompression in its own thread (zlib releases the GIL), overlapped
-        # with native packing here
-        for chunk in prefetch_batches(
-                chunk_src, depth=4, name="hulk-gunzip",
-                span_names=("input.gunzip", "input.chunk_wait")):
-            if progress is not None:
-                progress["parse_bytes"] = progress.get("parse_bytes", 0) + len(chunk)
-            for item in packer.feed(chunk):
-                yield from emit_item(item)
+            chunk_src = _skip_lines(chunk_src, 4 * skip_reads, pool.give)
+        chunks = prefetch_batches(
+            chunk_src, depth=_PREFETCH, name="hulk-gunzip",
+            span_names=(None, "input.chunk_wait"))
+        try:
+            for chunk in chunks:
+                if progress is not None:
+                    progress["parse_bytes"] = progress.get("parse_bytes", 0) + len(chunk)
+                for item in packer.feed(chunk):
+                    yield from emit_item(item)
+                pool.give(chunk)
+        finally:
+            pool.close()
+            chunks.close()
         try:
             tail = packer.end_of_file()
         except ValueError as e:

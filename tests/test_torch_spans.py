@@ -1,7 +1,8 @@
 """hulk_tpu_torch.spans: off by default at the cost of one flag check; on,
 the spans of one streamed `sketch` job on its four threads (the stream
 thread, hulk-gunzip, hulk-parse and hulk-flush), under one job id, nested
-on each thread, with the counts of the work; flush_stats["flush_waits"]
+on each thread, with the counts of the work and of the inflated bytes by
+route; flush_stats["flush_waits"]
 as before either way; and under torch.profiler the calling thread's spans
 in the Chrome trace, each inside its own range.
 
@@ -160,6 +161,31 @@ def test_a_long_record_is_one_batch_with_one_sync(tmp_path, spans_on):
     stepped = sum(1 for r in recs if r.name == "stream.sync"
                   and by_id[r.parent].name == "stream.step")
     assert spans.counters()["stream.batches"] == stepped + 1
+
+
+@pytest.mark.parametrize("cap", [None, 0])
+def test_the_inflate_counts_its_bytes_by_route(reads, tmp_path, spans_on, monkeypatch, cap):
+    """`input.inflate_member_bytes` and `input.inflate_zlib_bytes` count
+    every inflated byte of the job's .gz inputs once, under the route that
+    inflated it: the member route, or zlib when the cap (0 here) sends the
+    files there; and each inflate step is one `input.gunzip` span."""
+    import gzip
+
+    from hulk_tpu_torch.stream import fastq
+
+    if cap is not None:
+        monkeypatch.setattr(fastq, "_INFLATE_CAP", cap)
+    _sketch(reads, tmp_path / "out")
+    total = 0
+    for r in reads:
+        with gzip.open(r, "rb") as fh:
+            total += len(fh.read())
+    counts = spans.counters()
+    route, other = (("input.inflate_member_bytes", "input.inflate_zlib_bytes") if cap is None
+                    else ("input.inflate_zlib_bytes", "input.inflate_member_bytes"))
+    assert counts[route] == total and not counts.get(other)
+    steps = [r for r in spans.records() if r.name == "input.gunzip"]
+    assert len(steps) >= len(reads)
 
 
 def test_flush_waits_one_entry_a_wait_with_spans_off(reads, tmp_path):
