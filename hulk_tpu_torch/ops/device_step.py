@@ -297,6 +297,7 @@ def group_scan_body(hist: torch.Tensor, count: torch.Tensor,
                                     ascending=False)
                 count += cnt
             else:
+                spans.count("stream.two_sort_batches")
                 svals, cnt = sorted_batch_values(wmin, report)
                 # the binning adds the live count to count on the device
                 bin_scatter_values(hist, svals, count=count)
