@@ -39,7 +39,8 @@ Phases, each printing its seconds:
   3b. profile: warm passes over the same file: the host parse alone (no
      device), `sketch` end to end, and `sketch` under torch.profiler for the
      device's busy share, the operators with the most device time and each
-     kernel's device time a launch; index_add_ must not appear.
+     kernel's device time a launch; index_add runs only in the flush's CMS
+     update, once a row.
   4. equality: the first 50,000 of those reads sketched on the card and with
      --device cpu (the plain versions) must give byte-identical out.json.
   5. sketches: `sketch --kmv --khf --hmh` on the same reads (k=21, w=9,
@@ -65,8 +66,8 @@ Phases, each printing its seconds:
      list: (8a) `-i 1000000 -x 0.9 --stream --checkpoint`, reads/s, ten
      interval documents and the final one on stdout, the streaming
      thread's waits on the flush worker, and a profiled run over files 0-1;
-     (8b) the host flush against --deviceFlush (out.json byte-identical, no
-     margin fallback), then one interval's flush alone: the candidate
+     (8b) the card's exact flush against --deviceFlush (out.json
+     byte-identical, no margin fallback), then one interval's flush alone: the candidate
      stage's device time beside its bound, and the exact host flush without
      and with drift; (8c) a run over files 0-4 with --checkpoint, resumed
      over all ten: it seeks to file 4 and gives 8a's out.json; (8d) the
@@ -74,7 +75,8 @@ Phases, each printing its seconds:
      sketches, and with --deviceFlush against the host flush on the CPU:
      stdout and out.json byte-identical card vs CPU. Every run's launches
      are asserted: the packed minimizer and the fused binning pass once per
-     batch.
+     batch, and the exact flush's entries once per flush (none with
+     --deviceFlush).
   9. smash: 1,024 synthetic sketch JSONs (16 families), `smash -m
      weightedjaccard` and `-m jaccard` on the card and with --device cpu:
      CSV byte-identical, the first 40 sketches' cells equal to the host
@@ -114,10 +116,10 @@ Phases, each printing its seconds:
      hulk_jump_hash launched.
   12. flush step and entry points: (12a) sharded_flush_step without drift
      on [cuda:0, cuda:0] (2 stripes of 21 slots) over two interval flushes
-     of phase 3's halves (k=21, s=42, 194,481 bins, CMS 7 x 2,000): the CMS
-     bit-equal to the exact host flush's, the bins equal, the weights
-     within rtol 1e-12, two stripes bit-equal to one, device time a flush
-     beside its bound; (12b) with drift (-x 0.9): the two drift kernel
+     of phase 3's halves (k=21, s=42, 194,481 bins, CMS 7 x 2,000): the CMS,
+     the bins and the weights bit-equal to the exact host flush's, two
+     stripes bit-equal to one, device time a flush beside its bound;
+     (12b) with drift (-x 0.9): the two drift kernel
      entries (the CMS scan, the slot selection) bit-equal to their plain
      versions on a k=9 histogram and on the first 4,096 live bins of phase
      3's first half, the whole two-flush run against HistoSketch(decay=0.9)
@@ -129,7 +131,11 @@ Phases, each printing its seconds:
      also on Aka strictly decreasing (its worst case); both entries on
      synth's corner cases of their designs; one drift flush's wall ms
      (median of 5) and its device time by operator (torch.profiler, its
-     drift launches counted); (12c) entry()'s step on the card
+     drift launches counted); the Aka entry (hulk_cws_aka) at the first
+     half's shape bit-equal to its plain version, its device time beside
+     its bound; the exact flush as the stream runs it (_CardFlusher) with
+     and without drift, wall ms beside the host flush's at one thread,
+     bit for bit the host flush's; (12c) entry()'s step on the card
      against the CPU, on its [64, 128] batch and at [16384, 160], the u8
      minimizer and hulk_jump_hash once each a call; (12d)
      dryrun_multichip(2) on the card against [cpu, cpu].
@@ -207,6 +213,9 @@ LSH_DENSE = (20_000, 200, 2, 0.5)
 LSH_SUBSET = 50
 LSH_TOPK = 64
 RANK_TIMEOUT = 600
+# the exact flush's entries, which every flush of a one-process run on the
+# card launches
+FLUSH_ENTRIES = ("cws_aka", "drift_select", "cms_drift_scan")
 # phase 12's decay ratio (-x) and the live bins over which the plain drift
 # versions run on the full-width histogram
 DRIFT = 0.9
@@ -1035,16 +1044,35 @@ def check_sketch(path: str, s: int, k: int = 21, algos=("histosketch",)) -> None
 
 
 def reset_launches() -> None:
-    from hulk_tpu_torch.ops import flush_drift_cuda, jump_cuda, minimizer_cuda
+    from hulk_tpu_torch.ops import cws_aka_cuda, flush_drift_cuda, jump_cuda, minimizer_cuda
 
-    for d in (minimizer_cuda.launches, jump_cuda.launches, flush_drift_cuda.launches):
+    for d in (minimizer_cuda.launches, jump_cuda.launches, flush_drift_cuda.launches,
+              cws_aka_cuda.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_launches() -> dict:
-    from hulk_tpu_torch.ops import flush_drift_cuda, jump_cuda, minimizer_cuda
+    from hulk_tpu_torch.ops import cws_aka_cuda, flush_drift_cuda, jump_cuda, minimizer_cuda
 
-    return {**minimizer_cuda.launches, **jump_cuda.launches, **flush_drift_cuda.launches}
+    return {**minimizer_cuda.launches, **jump_cuda.launches, **flush_drift_cuda.launches,
+            **cws_aka_cuda.launches}
+
+
+def step_launches(counts: dict) -> int:
+    """The launches of the stream's step entries: all but the flush's."""
+    return sum(v for key, v in counts.items() if key not in FLUSH_ENTRIES)
+
+
+def check_flush_launches(tag: str, counts: dict, flushes: int, drift: bool,
+                         stripes: int = 1) -> None:
+    """Each flush of a one-process run on the card through the exact
+    flush's entries: the Aka and the selection once a (flush, stripe), the
+    drift scan once a flush with -x."""
+    want = {"cws_aka": flushes * stripes, "drift_select": flushes * stripes,
+            "cms_drift_scan": flushes if drift else 0}
+    got = {key: counts[key] for key in want}
+    if got != want:
+        raise SystemExit(f"FAIL {tag}: flush launches {got}, expected {want}")
 
 
 def drive(tag: str, src: str, tmp: str, extra=()) -> tuple[float, int, dict]:
@@ -1109,6 +1137,9 @@ def profiled(tag: str, src: str, tmp: str, extra=()):
 
 def profile_phase(fq: str, tmp: str) -> None:
     """Warm passes over fq: parse alone, `sketch`, and `sketch` profiled."""
+    import torch
+
+    from hulk_tpu_torch.sketch.countmin import cms_shape
     from hulk_tpu_torch.stream.fastq import batch_reads_native
 
     t0 = time.perf_counter()
@@ -1119,8 +1150,15 @@ def profile_phase(fq: str, tmp: str) -> None:
     t_run, _ = sketch_cli(fq, os.path.join(tmp, "warm"), "cuda", os.path.join(tmp, "warm.log"))
     print(f"sketch, warm: {t_run:.3f} s = {READS / t_run:.0f} reads/s", flush=True)
     events = profiled("sketch", fq, tmp)
-    if any("index_add" in e.key for e in events):
-        raise SystemExit("FAIL profile: index_add_ ran on the main path")
+    # the run's one flush (no drift) adds the counts into each CMS row with
+    # index_add (parallel/mesh.py:_estimates); the binning takes the jump
+    # kernel, so none may run once a batch
+    depth = cms_shape()[0]
+    adds = {e.key: e.count for e in events if "index_add" in e.key
+            and e.device_type == torch.autograd.DeviceType.CPU}
+    if any(n != depth for n in adds.values()):
+        raise SystemExit(f"FAIL profile: index_add ran on the main path ({adds}; the flush's "
+                         f"CMS update takes {depth})")
 
 
 def head_records(src: str, dst: str, n: int, marker: bytes) -> None:
@@ -1344,12 +1382,12 @@ def reset_flush_stats() -> None:
 
 
 def check_launches(tag: str, counts: dict, reads: int) -> int:
-    """The main path's two entries once per batch, and nothing else: the
-    packed minimizer and the fused binning pass the same number of times,
-    at least one batch per 16,384 reads. Returns the batch count."""
+    """The main path's two entries once per batch, and no other step entry:
+    the packed minimizer and the fused binning pass the same number of
+    times, at least one batch per 16,384 reads. Returns the batch count."""
     n = counts["minimizer_window_packed"]
     if (n < -(-reads // 16384) or counts["bin_scatter_keys"] != n
-            or sum(counts.values()) != 2 * n):
+            or step_launches(counts) != 2 * n):
         raise SystemExit(f"FAIL {tag}: launches {counts} for {reads} reads")
     return n
 
@@ -1484,6 +1522,7 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[
                                                "--checkpoint", os.path.join(tmp, "ck.npz")))
     path_launches["8a"] = counts
     check_launches("8a", counts, n_reads)
+    check_flush_launches("8a", counts, len(files), True)
     with open(os.path.join(tmp, "8a.stdout"), "rb") as fh:
         stdout = fh.read()
     docs = json_docs(stdout)
@@ -1504,24 +1543,26 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[
     profiled("8a_files_0_1", ",".join(files[:2]), tmp,
              (*every, "-x", "0.9", "--stream", "--checkpoint", os.path.join(tmp, "ck_prof.npz")))
 
-    # (8b) the host flush against --deviceFlush, no drift
+    # (8b) the card's exact flush against --deviceFlush, no drift
     reset_flush_stats()
     t_host, _, counts = drive("8b_host", src, tmp, every)
     path_launches["8b_host"] = counts
     check_launches("8b host", counts, n_reads)
+    check_flush_launches("8b host", counts, len(files), False)
     t_dev, _, counts = drive("8b_device", src, tmp, (*every, "--deviceFlush"))
     path_launches["8b_device"] = counts
     check_launches("8b device", counts, n_reads)
+    check_flush_launches("8b device", counts, 0, False)
     stats = dict(pipeline.flush_stats)
     for name in ("8b_host", "8b_device"):
         with open(os.path.join(tmp, f"{name}.json"), "rb") as fh:
             stats[name] = fh.read()
     if stats["8b_host"] != stats["8b_device"]:
-        raise SystemExit("FAIL 8b: --deviceFlush out.json differs from the host flush's")
+        raise SystemExit("FAIL 8b: --deviceFlush out.json differs from the exact flush's")
     if stats["margin_fallbacks"] or stats["device_flushes"] != len(files):
         raise SystemExit(f"FAIL 8b: {stats['device_flushes']} device flushes, "
                          f"{stats['margin_fallbacks']} margin fallbacks")
-    print(f"8b: host flush {t_host:.3f} s = {n_reads / t_host:.0f} reads/s; --deviceFlush "
+    print(f"8b: exact flush {t_host:.3f} s = {n_reads / t_host:.0f} reads/s; --deviceFlush "
           f"{t_dev:.3f} s = {n_reads / t_dev:.0f} reads/s; out.json byte-identical; "
           f"{stats['device_flushes']} device flushes, 0 margin fallbacks", flush=True)
     stage = flush_stage_times(fq)
@@ -1998,8 +2039,9 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     if got != want_a:
         raise SystemExit("FAIL 11a: the sharded out.json differs from phase 5's")
     if (counts["minimizer_window_packed"] != steps or counts["bin_scatter_keys"] != steps
-            or sum(counts.values()) != 2 * steps):
+            or step_launches(counts) != 2 * steps):
         raise SystemExit(f"FAIL 11a: launches {counts}, expected {steps} (batch, shard) steps")
+    check_flush_launches("11a", counts, 1, False, stripes=2)
     print(f"11a --kmv --khf --hmh on [{dev}, {dev}]: {READS / seconds:.0f} reads/s "
           f"(phase 5, one device, same card: {READS / t5:.0f} reads/s); out.json "
           f"byte-identical to phase 5's; {steps} (batch, shard) steps, each entry once a "
@@ -2015,8 +2057,9 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     if got != want_b:
         raise SystemExit("FAIL 11b: the sharded -k 31 out.json differs from phase 6's")
     if (counts["minimizer_window_packed"] != steps or counts["bin_scatter_values"] != steps
-            or sum(counts.values()) != 2 * steps):
+            or step_launches(counts) != 2 * steps):
         raise SystemExit(f"FAIL 11b: launches {counts}, expected {steps} (batch, shard) steps")
+    check_flush_launches("11b", counts, 1, False, stripes=2)
     print(f"11b -k 31 on [{dev}, {dev}]: {READS / seconds:.0f} reads/s; out.json "
           f"byte-identical to phase 6's; {steps} (batch, shard) steps in {groups[0]} group "
           f"steps, none with a host sync (sync debug mode \"error\")", flush=True)
@@ -2034,7 +2077,7 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     stats = dict(pipeline.flush_stats)
     if got != want_c:
         raise SystemExit("FAIL 11c: the striped device flush's out.json differs from the "
-                         "one-device host flush's")
+                         "one-device exact flush's")
     if stats["margin_fallbacks"] or stats["device_flushes"] != 2:
         raise SystemExit(f"FAIL 11c: {stats['device_flushes']} device flushes, "
                          f"{stats['margin_fallbacks']} margin fallbacks")
@@ -2054,7 +2097,7 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     depth, width = striped.cms.shape
     b11 = flush_stage_bound(depth, width)
     print(f"11c --deviceFlush -i {READS} over files 0-1 on [{dev}, {dev}]: "
-          f"{2 * READS / seconds:.0f} reads/s (one-device host flush {2 * READS / t_host:.0f}); "
+          f"{2 * READS / seconds:.0f} reads/s (one-device exact flush {2 * READS / t_host:.0f}); "
           f"out.json byte-identical; {stats['device_flushes']} device flushes, 0 margin "
           f"fallbacks; the striped stage bit-equal to the one-device stage on 1M reads' "
           f"histogram, {stage_ms:.4f} ms device time (bound {b11[0]:.4f} ms by {b11[1]})",
@@ -2135,8 +2178,8 @@ def host_flushes(hists: list, tables, decay: float):
 
 
 def check_against_host(tag: str, state, hs) -> None:
-    """The step's (cms, sketch, weights) against the host flush: the CMS
-    bit-equal, the bins equal, the weights within rtol 1e-12."""
+    """The step's (cms, sketch, weights) against the host flush: the CMS,
+    the bins and the weights bit-equal."""
     import numpy as np
 
     cms, sk, w = (x.cpu().numpy() for x in state)
@@ -2146,8 +2189,85 @@ def check_against_host(tag: str, state, hs) -> None:
     if not np.array_equal(sk.astype(np.uint64), hs.sketch):
         raise SystemExit(f"FAIL {tag}: {int((sk.astype(np.uint64) != hs.sketch).sum())} "
                          f"sketch bins differ from the host flush's")
-    if not np.allclose(w, hs.sketch_weights, rtol=1e-12, atol=0.0):
-        raise SystemExit(f"FAIL {tag}: weights beyond rtol 1e-12 of the host flush's")
+    if not np.array_equal(w.view(np.uint64), hs.sketch_weights.view(np.uint64)):
+        raise SystemExit(f"FAIL {tag}: {int((w != hs.sketch_weights).sum())} weights differ "
+                         f"from the host flush's")
+
+
+def aka_entry_times(dev, hist) -> dict:
+    """hulk_cws_aka at a flush's shape (s=42, the live bins of hist, the
+    counts as estimates, the cached CWS tables): bit-equal to the plain
+    version on the card; its device ms a launch (C entry), its bound, and
+    the plain version's ms."""
+    import torch
+
+    from hulk_tpu_torch.ops import cws_aka_cuda
+    from hulk_tpu_torch.ops.cws_aka import cws_aka_torch
+    from hulk_tpu_torch.parallel import mesh
+
+    ids = torch.nonzero(hist).flatten()
+    n, s = ids.numel(), 42
+    esti = hist[ids].double()
+    c, b, exp_r = mesh.cached_table_stripes([dev], s, NBINS)[0]
+    out = torch.empty(s, n, dtype=torch.float64, device=dev)
+    fn, stream = cws_aka_cuda.entry("hulk_cws_aka"), torch.cuda.current_stream().cuda_stream
+    ms = device_ms(lambda: fn(esti.data_ptr(), ids.data_ptr(), n, c.data_ptr(), b.data_ptr(),
+                              exp_r.data_ptr(), s, NBINS, out.data_ptr(), stream),
+                   reps=20, warm=3)
+    want = cws_aka_torch(esti, ids, c, b, exp_r)
+    check_equal(f"cws_aka at {s} x {n}", out.view(torch.int64), want.view(torch.int64))
+    plain_ms = time_ms(lambda: cws_aka_torch(esti, ids, c, b, exp_r), reps=5, warm=1)
+    # bytes: c, b, exp_r read and Aka written a (slot, bin), estimate and id
+    # a bin; operations: Exp, the subtract, multiply and divide around it
+    # (29 FP64 a (slot, bin), a divide as one), Log (25 a bin)
+    bd, by = bound(32 * s * n + 16 * n, 29 * s * n + 25 * n, FP64_OPS_PER_S)
+    print(f"cws_aka (hulk_cws_aka) {s} x {n} live bins: device {ms:.4f} ms a launch, bound "
+          f"{bd:.4f} ms ({by}, {100 * bd / ms:.1f}%), plain {plain_ms:.3f} ms; bit-equal to "
+          f"the plain version", flush=True)
+    return dict(name="cws_aka", route="cuda", source=cws_aka_cuda.SOURCE,
+                replaces="hulk_tpu/parallel/mesh.py:196-315 (XLA exp/log, no Pallas)",
+                entry="hulk_cws_aka", counter="cws_aka", max_abs_err=0.0, bit_equal=True,
+                ms=ms, plain_ms=plain_ms, plain_shape=f"{s} x {n}, one call", bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
+def exact_flush_walls(dev, hist, decay: float) -> tuple[list, float]:
+    """One flush of hist (-x decay) on a fresh sketch: the card's exact
+    flush as the stream runs it (_CardFlusher on [dev], its CMS synced
+    back), wall ms of 5, sorted, bit for bit the host flush's; and the
+    host flush's ms (HistoSketch.add_elements, native) at one thread, as
+    -p 1 runs it."""
+    import numpy as np
+    import torch
+
+    from hulk_tpu_torch import native
+    from hulk_tpu_torch.sketch.histosketch import HistoSketch
+    from hulk_tpu_torch.stream.pipeline import _CardFlusher
+
+    walls = []
+    for _ in range(5):
+        hs = HistoSketch(21, 42, NBINS, decay)
+        flusher = _CardFlusher(hs, NBINS, [dev])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flusher.flush_from(hist)
+        flusher.sync_cms()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    h = hist.cpu().numpy().astype(np.float64)
+    ids = np.nonzero(h)[0].astype(np.int64)
+    host = HistoSketch(21, 42, NBINS, decay)
+    native.set_threads(1)
+    t0 = time.perf_counter()
+    host.add_elements(ids, h[ids])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    native.set_threads(os.cpu_count() or 1)
+    for name in ("sketch", "sketch_weights"):
+        if not np.array_equal(getattr(hs, name).view(np.uint64),
+                              getattr(host, name).view(np.uint64)):
+            raise SystemExit(f"FAIL the card's exact flush: {name} differs from the host's")
+    if not np.array_equal(hs.cms.sketch.view(np.uint64), host.cms.sketch.view(np.uint64)):
+        raise SystemExit("FAIL the card's exact flush: the CMS differs from the host's")
+    return sorted(walls), host_ms
 
 
 def start_chain_build(tmp: str) -> tuple:
@@ -2377,6 +2497,7 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
     reset_launches()
     two, step2, stripes2 = flushes([dev, dev], 0.0, False)
     path_launches["12a"] = read_launches()
+    check_flush_launches("12a", path_launches["12a"], 2, False, stripes=2)
     one, _, _ = flushes([dev], 0.0, False)
     for x, y, name in zip(two, one, ("cms", "sketch", "weights")):
         check_equal(f"12a two stripes' {name} against one stripe's",
@@ -2387,10 +2508,9 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
                                   tag="sharded_flush_step, no drift, 2 stripes")
     b12 = flush_stage_bound(depth, width)
     print(f"12a sharded_flush_step, no drift, on [{dev}, {dev}]: two flushes of phase 3's "
-          f"halves ({live[0]} and {live[1]} bins used of {NBINS}, s=42): CMS bit-equal to "
-          f"the host flush's, bins equal, weights within rtol 1e-12; 2 stripes bit-equal "
-          f"to 1; {stage_ms:.4f} ms device time a flush (bound {b12[0]:.4f} ms by {b12[1]})",
-          flush=True)
+          f"halves ({live[0]} and {live[1]} bins used of {NBINS}, s=42): CMS, bins and "
+          f"weights bit-equal to the host flush's; 2 stripes bit-equal to 1; {stage_ms:.4f} "
+          f"ms device time a flush (bound {b12[0]:.4f} ms by {b12[1]})", flush=True)
     stage = dict(name="sharded_flush_step", source="hulk_tpu_torch/parallel/mesh.py",
                  counterpart="hulk_tpu/parallel/mesh.py:237-269", ms=stage_ms,
                  bound_ms=b12[0], bound_by=b12[1], launches=2,
@@ -2410,16 +2530,15 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
     reset_launches()
     drifted, step_d, stripes_d = flushes([dev, dev], dw, True)
     path_launches["12b"] = counts = read_launches()
-    if counts["cms_drift_scan"] != 2 or counts["drift_select"] != 4:
-        raise SystemExit(f"FAIL 12b: launches {counts}, expected the scan once a flush and "
-                         f"the selection once a (flush, stripe)")
+    check_flush_launches("12b", counts, 2, True, stripes=2)
     check_against_host("12b sharded_flush_step, -x 0.9", drifted,
                        host_flushes(halves, tables, DRIFT))
     walls = wall_ms(lambda: step_d(halves[0], rb, *empty(), stripes_d))
     drift_dev_ms = profiled_device_ms(
         lambda: step_d(halves[0], rb, *empty(), stripes_d),
         tag="sharded_flush_step, -x 0.9, 2 stripes",
-        expect={"cms_drift_scan_kernel": 1, "chunk_min_kernel": 2, "drift_select_kernel": 2})
+        expect={"cms_drift_scan_kernel": 1, "cws_aka_kernel": 2, "chunk_min_kernel": 2,
+                "drift_select_kernel": 2})
     # each entry's device time by its C entry at the first flush's shape and
     # on the plain versions' prefix; the scan's chains of multiplies and of
     # multiply-adds
@@ -2429,14 +2548,20 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
     bounds = drift_bounds(n, 42, depth, width)
     chains = chain_times(chain_build, n, depth * width, dw)
     mul_ms = chains["multiply"]
-    print(f"12b sharded_flush_step, -x 0.9, on [{dev}, {dev}]: two flushes, CMS bit-equal to "
-          f"the host flush's (HistoSketch(decay=0.9)), bins equal, weights within rtol "
-          f"1e-12; launches {counts}; one flush {walls[2]:.3f} ms wall (median of 5, "
+    print(f"12b sharded_flush_step, -x 0.9, on [{dev}, {dev}]: two flushes, CMS, bins and "
+          f"weights bit-equal to the host flush's (HistoSketch(decay=0.9)); launches "
+          f"{counts}; one flush {walls[2]:.3f} ms wall (median of 5, "
           f"{walls[0]:.3f}-{walls[-1]:.3f}), {drift_dev_ms:.4f} ms device", flush=True)
+    for decay in (DRIFT, 1.0):
+        card, host_ms = exact_flush_walls(dev, halves[0], decay)
+        print(f"12b the exact flush as the stream runs it (_CardFlusher, one stripe, -x "
+              f"{decay}), {live[0]} live bins: {card[2]:.3f} ms wall (median of 5, "
+              f"{card[0]:.3f}-{card[-1]:.3f}), bit for bit the host flush's, which took "
+              f"{host_ms:.1f} ms at one thread", flush=True)
     for key, ms in chains.items():
         print(f"{key} chain: {depth * width} threads of {n} dependent FP64 steps, "
               f"{ms:.4f} ms device ({1e6 * ms / n:.3f} ns a step)", flush=True)
-    rows_out = []
+    rows_out = [aka_entry_times(dev, halves[0])]
     for name, entry, plain_ms in (("cms_drift_scan", "hulk_cms_drift_scan", pre["scan_ms"]),
                                   ("drift_select", "hulk_drift_select", pre["select_ms"])):
         (bd, by), ms = bounds[name], full[name]
@@ -2570,8 +2695,9 @@ def main() -> int:
             # binning pass, once per batch each
             batches = counts["minimizer_window_packed"]
             if (n_min <= 0 or batches <= 0 or counts["bin_scatter_keys"] != batches
-                    or sum(counts.values()) != 2 * batches):
+                    or step_launches(counts) != 2 * batches):
                 raise SystemExit(f"FAIL main path: minimizers {n_min}, launches {counts}")
+            check_flush_launches("main path", counts, 1, False)
 
         with phase("3b profile"):
             profile_phase(fq, tmp)
@@ -2592,8 +2718,9 @@ def main() -> int:
                   flush=True)
             if (counts["minimizer_window_packed"] != batches
                     or counts["bin_scatter_keys"] != batches
-                    or sum(counts.values()) != 2 * batches):
+                    or step_launches(counts) != 2 * batches):
                 raise SystemExit(f"FAIL sketches path: launches {counts}, {batches} batches")
+            check_flush_launches("sketches path", counts, 1, False)
             profiled("sketches", fq, tmp, flags)
             card_vs_cpu(f"sketches, first {SUBSET_READS} reads", small, tmp, flags)
 
@@ -2613,8 +2740,9 @@ def main() -> int:
             print(f"sketch -k 31 {READS} reads: {READS / seconds:.0f} reads/s", flush=True)
             n2 = counts["minimizer_window_packed"]
             if (n_min <= 0 or n2 < -(-READS // 2048) or counts["bin_scatter_values"] != n2
-                    or sum(counts.values()) != 2 * n2):
+                    or step_launches(counts) != 2 * n2):
                 raise SystemExit(f"FAIL two-sort path: launches {counts}")
+            check_flush_launches("two-sort path", counts, 1, False)
             profiled("two_sort", fq, tmp, flags)
             card_vs_cpu(f"two-sort, first {SUBSET_READS} reads", small, tmp, flags)
 
@@ -2643,6 +2771,7 @@ def main() -> int:
                     or counts["bin_scatter_values"] or counts["jump_hash"]):
                 raise SystemExit(f"FAIL FASTA path: launches {counts}, expected record "
                                  f"{n_rec}, dedup binning {n_long}")
+            check_flush_launches("FASTA path", counts, 1, False)
             sub = os.path.join(tmp, "first_contigs.fa")
             head_records(fa, sub, SUBSET_CONTIGS, b">")
             label = (f"FASTA, first {SUBSET_CONTIGS} contigs "

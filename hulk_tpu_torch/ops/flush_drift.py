@@ -15,8 +15,11 @@ in bin order:
   (b) each slot's selection: in bin order, the slot takes a bin whose Aka
       is below weight / dw. It depends on the order (docs/PERF.md,
       "Decision record: no drift-mode device flush") and on no other slot,
-      so slot stripes run it apart.
-Aka between the two is elementwise (parallel/mesh.py). `*_torch` are the
+      so slot stripes run it apart. With dw = 1 it is the no-drift rule
+      (below the weight itself: the first index of the slot's minimum, where
+      that is below the weight), which the exact device flush takes too.
+Aka between the two is elementwise, with Go's Exp and Log (ops/cws_aka.py),
+and the flush is parallel/mesh.py:sharded_flush_step. `*_torch` are the
 plain versions, written as the JAX body is, one step a bin;
 `cms_drift_scan` and `drift_select` take them for CPU tensors and the
 Hopper kernels (ops/flush_drift_cuda.py) for CUDA tensors.

@@ -53,8 +53,10 @@ def _check(what: str, device: torch.device, **tensors) -> None:
 
 
 def _check_dw(what: str, dw: float) -> None:
-    if not 0.0 < dw < 1.0:
-        raise ValueError(f"{what}: the decay weight must be in (0, 1), got {dw}")
+    """dw = exp(-decay ratio) in [0, 1]: 0 at -x 0; 1 makes the selection the
+    no-drift rule (Aka below the weight itself)."""
+    if not 0.0 <= dw <= 1.0:
+        raise ValueError(f"{what}: the decay weight must be in [0, 1], got {dw}")
 
 
 def cms_drift_scan_cuda(freqs: torch.Tensor, row_bins: torch.Tensor, cms: torch.Tensor,

@@ -1,8 +1,9 @@
 """The devices a process runs on, as a dp and mp "mesh": the per-shard group
-step of the data-parallel stream, the CWS tables striped over sketch slots,
-the no-drift flush's candidate stage (--deviceFlush) on one device or
-striped, the sharded histogram step, and the whole flush as one device
-step over slot stripes, with or without drift (sharded_flush_step).
+step of the data-parallel stream, the CWS tables striped over sketch slots
+(uploaded once a process), the no-drift flush's candidate stage
+(--deviceFlush) on one device or striped, the sharded histogram step, and
+the whole flush as one exact device step over slot stripes, with or without
+drift (sharded_flush_step).
 
 Counterpart of hulk_tpu/parallel/mesh.py (make_sketch_mesh,
 make_sharded_group_step, sharded_histogram_step, sharded_flush_step,
@@ -20,8 +21,10 @@ devices.
 """
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from hulk_tpu_torch import spans
@@ -124,6 +127,41 @@ def shard_tables(devices: list, tables) -> list[tuple]:
             for dev, (lo, hi) in zip(devices, stripes(s, len(devices)))]
 
 
+# The flush's tables on the devices, uploaded once a process and then read
+# only: the CWS tables' slot stripes keyed by (sketch size, bins, devices),
+# the CMS row table by (bins, depth, width, device), as their host caches
+# key them (hashes/cws.py, sketch/countmin.py). At k = 31 the CWS tables
+# are 931 MB, which a job would otherwise copy at every start.
+_on_devices: dict = {}
+_on_devices_lock = threading.Lock()
+
+
+def _once(key: tuple, make):
+    """_on_devices[key], made by make() at the first call."""
+    with _on_devices_lock:
+        if key not in _on_devices:
+            _on_devices[key] = make()
+        return _on_devices[key]
+
+
+def cached_table_stripes(devices: list, sketch_size: int, nbins: int) -> list[tuple]:
+    """shard_tables(devices, get_cws_tables(sketch_size, nbins)), once a
+    process."""
+    from hulk_tpu_torch.hashes.cws import get_cws_tables
+
+    return _once(("cws", sketch_size, nbins, tuple(str(d) for d in devices)),
+                 lambda: shard_tables(devices, get_cws_tables(sketch_size, nbins)))
+
+
+def cached_row_bins(device, nbins: int, depth: int, width: int) -> torch.Tensor:
+    """cms_row_bins_table(nbins, depth, width) as int64 [depth, nbins] on
+    `device`, once a process."""
+    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
+
+    return _once(("cmsrows", nbins, depth, width, str(device)), lambda: torch.from_numpy(
+        cms_row_bins_table(nbins, depth, width).astype(np.int64)).to(device))
+
+
 def _estimates(hist, row_bins, cms):
     """The CMS update and each bin's frequency estimate, exact: in every
     row the estimate of a bin is the counter before the flush plus the
@@ -216,58 +254,49 @@ def sharded_flush_step(devices: list, decay_weight: float, apply_drift: bool, de
     devices[0], the sketch, the weights and the CWS tables striped over
     `devices` by slots. Returns a step
 
-        (hist [nbins] int32 or f64, row_bins [depth, nbins] int64,
+        (hist [nbins] int32, int64 or f64, row_bins [depth, nbins] int64,
          cms [depth, width] f64, sketch [s] int64, weights [s] f64,
          table_stripes: shard_tables(devices, tables))
         -> (cms, sketch, weights) on devices[0].
 
-    The CMS is an explicit carry, so interval flushes compose. Without
-    drift, the CMS update and the estimates are the exact grouped prefix
-    sums (_estimates); each stripe's device takes its slots' Aka, keeps
-    the first index of each slot's minimum (the reference's
-    replace-if-strictly-smaller scan in ascending bin order) and replaces
-    a slot where that Aka is below its weight. With drift (decay_weight =
-    exp(-decay) in (0, 1)), the CMS scan (ops/flush_drift.py:
-    cms_drift_scan) gives the live bins' estimates on devices[0], and each
-    stripe runs its slots' order-dependent selection (drift_select) on its
-    device. Both use the device's exp/log for Aka, as hulk_tpu's step
-    uses XLA's: the bins agree with the exact host flush and the weights
-    within a few ULP (tests/test_torch_flush_step.py). Stripes join in
-    slot order, bit-equal for any number of them. No production path
-    selects this step: the stream flushes on the host or through the
-    candidate stage (pipeline._DeviceFlusher), as in hulk_tpu."""
+    Bit for bit the exact host flush (HistoSketch.add_elements) of the
+    histogram's live bins (count != 0) in ascending order. The CMS is an
+    explicit carry, so interval flushes compose. The estimates: without
+    drift the exact grouped prefix sums (_estimates); with drift
+    (decay_weight = exp(-decay) in [0, 1)) the CMS scan
+    (ops/flush_drift.py: cms_drift_scan), on devices[0]. Each stripe's
+    device takes its slots' Aka of the live bins with Go's Exp and Log
+    (ops/cws_aka.py: cws_aka) and runs each slot's replace-if-below scan in
+    bin order (drift_select): below weight / decay_weight with drift, below
+    the weight itself without (decay weight 1, the first index of the
+    minimum where it is below the weight). Stripes join in slot order,
+    bit-equal for any number of them. run_sketch_pipeline flushes through
+    this step on CUDA devices in one process (stream/pipeline.py)."""
+    from hulk_tpu_torch.ops.cws_aka import cws_aka
     from hulk_tpu_torch.ops.flush_drift import cms_drift_scan, drift_select
 
     home = devices[0]
+    dw = decay_weight if apply_drift else 1.0
 
     def step(hist, row_bins, cms, sketch, weights, table_stripes):
         if len(table_stripes) != len(devices):
             raise ValueError(f"{len(table_stripes)} table stripes for {len(devices)} devices")
         hist, row_bins, cms = hist.to(home), row_bins.to(home), cms.to(home)
+        freqs = hist.double()
+        ids = torch.nonzero(freqs).flatten()
         if apply_drift:
-            freqs = hist.double()
-            ids = torch.nonzero(freqs).flatten()
-            cms_out, esti = cms_drift_scan(freqs[ids], row_bins[:, ids].contiguous(), cms,
-                                           decay_weight)
+            cms_out, esti = cms_drift_scan(freqs[ids], row_bins[:, ids].contiguous(), cms, dw)
         else:
-            cms_out, esti, live = _estimates(hist, row_bins, cms)
+            cms_out, esti, _ = _estimates(hist, row_bins, cms)
+            esti = esti[ids]
         sketches, weights_out, lo = [], [], 0
         for c, b, exp_r in table_stripes:
             hi = lo + c.shape[0]
             dev = c.device
-            sk, wt = sketch[lo:hi].to(dev), weights[lo:hi].to(dev)
-            if hi > lo and apply_drift:
+            sk, wt = sketch[lo:hi].to(dev).contiguous(), weights[lo:hi].to(dev).contiguous()
+            if hi > lo:
                 i = ids.to(dev)
-                aka = _aka(esti.to(dev), torch.ones_like(i, dtype=torch.bool), c[:, i],
-                           b[:, i], exp_r[:, i]).contiguous()
-                sk, wt = drift_select(aka, i, sk.contiguous(), wt.contiguous(), decay_weight)
-            elif hi > lo:
-                aka = _aka(esti.to(dev), live.to(dev), c, b, exp_r)
-                best = torch.argmin(aka, 1)  # the first index of the minimum
-                best_aka = aka.gather(1, best[:, None])[:, 0]
-                better = best_aka < wt
-                sk = torch.where(better, best, sk)
-                wt = torch.where(better, best_aka, wt)
+                sk, wt = drift_select(cws_aka(esti.to(dev), i, c, b, exp_r), i, sk, wt, dw)
             sketches.append(sk.to(home))
             weights_out.append(wt.to(home))
             lo = hi

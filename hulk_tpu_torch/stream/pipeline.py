@@ -17,9 +17,12 @@ boundaries are global read indices, as in the reference, so the output does
 not depend on batching or on the device.
 
 Each interval's flush runs in one background worker while the next
-interval streams: the exact host flush (native), or with device_flush the
-device candidate stage (parallel/mesh.py) and the exact host recheck. At
-most one flush is in flight. After it, the --stream callback gets a
+interval streams. On CUDA devices in one process every flush, the interval
+flushes and the last, runs exactly on the card (_CardFlusher:
+mesh.sharded_flush_step, Go's Exp and Log in a kernel); on the CPU, or
+with several processes, the exact host flush (native); with device_flush
+the device candidate stage (parallel/mesh.py) and the exact host recheck.
+At most one flush is in flight. After it, the --stream callback gets a
 snapshot and, with checkpoint_path, the state goes to disk in hulk_tpu's
 checkpoint format, so that a run checkpointed by either package resumes in
 the other.
@@ -81,8 +84,8 @@ MAX_BATCH_POSITIONS = 16384 * 2048
 
 CHECKPOINT_MAGIC = "hulk_checkpoint_v1"
 
-# Counters of the interval machinery, for measurement: device flushes run,
-# margin-overflow fallbacks to the host flush, and the seconds the
+# Counters of the interval machinery, for measurement: --deviceFlush's
+# flushes run, its margin-overflow fallbacks to the host flush, and the seconds the
 # streaming thread waited on the flush worker, one entry a wait. Callers
 # reset them as they see fit.
 flush_stats = {"device_flushes": 0, "margin_fallbacks": 0, "flush_waits": []}
@@ -422,14 +425,14 @@ class _DeviceFlusher:
     with a full host flush in the rare case that the margin count exceeds T.
 
     The CMS stays on devices[0] between flushes; the CWS tables go to the
-    devices once, striped over them by slots (mesh.shard_tables), and each
-    device ranks its own slots (mesh.striped_flush_candidates). hs.sketch
+    devices once a process, striped over them by slots
+    (mesh.cached_table_stripes), and each device ranks its own slots
+    (mesh.striped_flush_candidates). hs.sketch
     and hs.sketch_weights stay on the host and are updated after every
     flush; hs.cms.sketch is brought up to date on demand (checkpoints, end
     of run)."""
 
     def __init__(self, hs: HistoSketch, nbins: int, devices: list):
-        from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
         from hulk_tpu_torch.sketch.spectrum import MIN_USED_BINS, SpectrumError
 
         self.hs = hs
@@ -439,9 +442,8 @@ class _DeviceFlusher:
         self.top_t = mesh.FLUSH_TOP_T
         device = devices[0]
         depth, width = hs.cms.sketch.shape
-        self.row_bins = torch.from_numpy(
-            cms_row_bins_table(nbins, depth, width).astype(np.int64)).to(device)
-        self.stripes = mesh.shard_tables(devices, hs.cws)
+        self.row_bins = mesh.cached_row_bins(device, nbins, depth, width)
+        self.stripes = mesh.cached_table_stripes(devices, hs.sketch_size, nbins)
         # owned copy (astype copies): on the CPU, .to() would share the
         # memory of hs.cms.sketch, which the fallback flush mutates in place
         self.cms = torch.from_numpy(hs.cms.sketch.astype(np.float64)).to(device)
@@ -461,11 +463,13 @@ class _DeviceFlusher:
             cb.cpu().numpy(), ce.cpu().numpy(), cl.cpu().numpy(), mc.cpu().numpy(),
             self.top_t,
         ):
+            spans.count("flush.device")
             self.cms = cms_out
             return
         # margin overflow: the exact host flush instead, so that exactness
         # never rests on the device's exp/log
         flush_stats["margin_fallbacks"] += 1
+        spans.count("flush.host")
         log.info("\tdevice flush margin overflow; host fallback")
         self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
         h = hist.cpu().numpy().astype(np.float64)
@@ -477,6 +481,49 @@ class _DeviceFlusher:
     def sync_cms(self) -> None:
         """Bring hs.cms.sketch up to date from the device (an owned copy)."""
         self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
+
+
+class _CardFlusher(_DeviceFlusher):
+    """Every histosketch flush on the stream's devices, exact: the CMS scan
+    with drift (or the exact prefix sums without), Aka with Go's Exp and
+    Log, and each slot's replace-if-below scan in bin order
+    (mesh.sharded_flush_step), bit for bit the host flush's
+    (HistoSketch.add_elements), drift or not, any number of stripes.
+
+    As for _DeviceFlusher, the CMS stays on devices[0] between flushes and
+    the tables go to the devices once a process, striped by slots; only the
+    sketch's bins and weights come back after a flush, into hs, where the
+    snapshots and the final document read them. The reference's errors
+    come at the same points: a no-op on an untouched histogram, SpectrumError
+    below MIN_USED_BINS."""
+
+    def __init__(self, hs: HistoSketch, nbins: int, devices: list):
+        super().__init__(hs, nbins, devices)
+        depth, width = hs.cms.sketch.shape
+        self.step = mesh.sharded_flush_step(devices, hs.cms.decay_weight,
+                                            hs.apply_concept_drift, depth, width)
+
+    def flush_from(self, hist: torch.Tensor) -> None:
+        used = int((hist != 0).sum())
+        if used == 0:
+            return
+        if used / float(self.nbins) < self._min_used:
+            raise self._spectrum_error("not used yet")
+        spans.count("flush.device")
+        hs, home = self.hs, self.cms.device
+        self.cms, sk, wt = self.step(
+            hist, self.row_bins, self.cms, torch.tensor(hs.sketch.view(np.int64), device=home),
+            torch.tensor(hs.sketch_weights, device=home), self.stripes)
+        hs.sketch[:] = sk.cpu().numpy().view(np.uint64)
+        hs.sketch_weights[:] = wt.cpu().numpy()
+
+
+def _flush_on_card(devices: list, multi_process: bool) -> bool:
+    """Whether every flush runs on the card (_CardFlusher): the stream's
+    devices are CUDA devices and one process sketches. Several processes
+    merge their spectra on the host and flush there; on the CPU the native
+    host flush stays."""
+    return not multi_process and all(d.type == "cuda" for d in devices)
 
 
 def _merge_processes(spectrum, kmv, khf, hmh, counters, s: int) -> tuple:
@@ -594,13 +641,19 @@ def run_sketch_pipeline(
             dev = _ShardedDeviceStream(cfg, nbins, devices)
         else:
             dev = _DeviceStream(cfg, nbins, devices[0])
-        flusher = _DeviceFlusher(hs, nbins, devices) if cfg.device_flush else None
+        if cfg.device_flush:
+            flusher = _DeviceFlusher(hs, nbins, devices)
+        elif _flush_on_card(devices, multi_process):
+            flusher = _CardFlusher(hs, nbins, devices)
+        else:
+            flusher = None
 
     def flush():
         # boss.go:112-128: flush is a no-op on an untouched spectrum;
         # otherwise dump (ascending bins) -> histosketch, then wipe
         if spectrum.cardinality() != 0:
             bins, freqs = spectrum.dump()
+            spans.count("flush.host")
             hs.add_elements(bins, freqs)
             spectrum.wipe()
 

@@ -610,8 +610,8 @@ def test_drift_kernels_match_plain_on_corner_cases():
 @pytest.mark.parametrize("drift", [False, True])
 def test_sharded_flush_step_card_matches_cpu(drift):
     """sharded_flush_step over [card, card] against [cpu, cpu] on a k=9
-    histogram, two flushes: the CMS and the bins equal, the weights within
-    rtol 1e-12 (the card's exp/log against the CPU's)."""
+    histogram, two flushes: the CMS, the bins and the weights bit-equal
+    (Go's Exp and Log in the Aka kernel and in the plain version)."""
     from hulk_tpu_torch.hashes.cws import build_cws_tables
     from hulk_tpu_torch.hashes.fdlibm import go_exp
     from hulk_tpu_torch.parallel import mesh
@@ -637,7 +637,7 @@ def test_sharded_flush_step_card_matches_cpu(drift):
             state = step(h.to(d), rb.to(d), *state, stripes)
         outs.append([x.cpu() for x in state])
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
-    np.testing.assert_allclose(outs[0][2].numpy(), outs[1][2].numpy(), rtol=1e-12)
+    assert torch.equal(outs[0][2].view(torch.int64), outs[1][2].view(torch.int64))
 
 
 @pytest.mark.gpu
@@ -672,3 +672,96 @@ def test_drift_select_kernel_ties_at_the_threshold():
     got, want = fdc.drift_select_cuda(aka, *args), fd.drift_select_torch(aka, *args)
     assert got[0].tolist() == want[0].tolist() == [10, 12]
     assert got[1].tolist() == want[1].tolist() == [1.0, 2.5]
+
+
+def _aka_tables(rng, s: int, nbins: int):
+    """CWS-like tables [s, nbins] drawn as the reference draws them (r and
+    the exponent of c from Gamma(2, 1), b = u * r), and exp(r)."""
+    r = rng.gamma(2.0, 1.0, (s, nbins))
+    return (np.log(rng.gamma(2.0, 1.0, (s, nbins))), rng.random((s, nbins)) * r, np.exp(r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [194481, 923521])
+def test_cws_aka_kernel_matches_plain(nbins):
+    """hulk_cws_aka against cws_aka_torch at 42 slots and every bin live, and
+    estimates a drift flush leaves (counts decayed by Go's exp(-0.9)): bit
+    for bit on the card, and on 2,000 bins against the plain version on the
+    CPU."""
+    from hulk_tpu_torch.hashes.fdlibm import go_exp
+    from hulk_tpu_torch.ops import cws_aka_cuda
+    from hulk_tpu_torch.ops.cws_aka import cws_aka_torch
+
+    dev = _card()
+    rng = np.random.default_rng(nbins)
+    tabs = [torch.from_numpy(t) for t in _aka_tables(rng, 42, nbins)]
+    esti = rng.integers(1, 5000, nbins) * float(go_exp(-0.9)) ** rng.integers(0, 3, nbins)
+    esti, ids = torch.from_numpy(esti.astype(np.float64)), torch.arange(nbins)
+    before = cws_aka_cuda.launches["cws_aka"]
+    got = cws_aka_cuda.cws_aka_cuda(esti.to(dev), ids.to(dev), *(t.to(dev) for t in tabs))
+    assert cws_aka_cuda.launches["cws_aka"] == before + 1
+    want = cws_aka_torch(esti.to(dev), ids.to(dev), *(t.to(dev) for t in tabs))
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    part = torch.arange(0, nbins, nbins // 2000)[:2000]
+    cpu = cws_aka_torch(esti[part], part, *tabs)
+    assert torch.equal(got[:, part.to(dev)].cpu().view(torch.int64), cpu.view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_cws_aka_kernel_on_exp_and_log_edges():
+    """The kernel's Exp at the edges of its range (through b, with the
+    estimate 1, c 1 and exp_r 1: Aka = 1 / Exp(-b)) and its Log at the edges
+    of its (through the estimate, b 0): the plain version's bits, NaN as NaN."""
+    from hulk_tpu_torch.hashes import fdlibm
+    from hulk_tpu_torch.ops.cws_aka import cws_aka_torch
+    from hulk_tpu_torch.ops.cws_aka_cuda import cws_aka_cuda
+
+    dev = _card()
+    big = np.finfo(np.float64).max
+    exp_at = [fdlibm._OVERFLOW, fdlibm._UNDERFLOW, fdlibm._NEAR_ZERO, -fdlibm._NEAR_ZERO, 0.0,
+              -708.4, -709.1, -740.0, -744.5, 709.5, np.inf, -np.inf, np.nan, big, -big]
+    exp_at += [(m - 0.5) / fdlibm._LOG2E for m in (-1074, -1, 1, 1023, 1024)]
+    exp_at += list(np.linspace(-746.0, 710.0, 4001))
+    log_at = [0.0, 5e-324, 1e-310, 2.2250738585072014e-308, fdlibm._SQRT2_OVER_2, 0.5, 1.0,
+              2.0, big, np.inf, np.nan, -1.0, -np.inf]
+    log_at += list(np.exp(np.random.default_rng(3).uniform(-744.0, 709.0, 4000)))
+    near = lambda v: [np.nextafter(v, -np.inf), v, np.nextafter(v, np.inf)]  # noqa: E731
+    with np.errstate(over="ignore"):  # past the largest double: inf
+        x = np.array([u for v in exp_at for u in near(v)])
+        y = np.array([u for v in log_at for u in near(v)])
+    esti = np.concatenate([np.ones_like(x), y])
+    b = np.concatenate([-x, np.zeros_like(y)])[None, :]
+    args = [torch.from_numpy(a).to(dev) for a in
+            (esti, np.arange(esti.shape[0]), np.ones_like(b), b, np.ones_like(b))]
+    got, want = cws_aka_cuda(*args), cws_aka_torch(*args)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int64), want[~nan].view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [["-i", "7000", "-x", "0.9", "--stream"],
+                                   ["-i", "7000", "--stream"]])
+def test_interval_card_flush_matches_cpu(extra, tmp_path, monkeypatch, capsys):
+    """The stream's flushes on the card (the exact Aka, the drift scan with
+    -x, each slot's selection) against --device cpu's host flush: each
+    --stream snapshot on stdout and out.json byte-identical, every flush
+    through the card's entries."""
+    from hulk_tpu_torch import cli
+    from hulk_tpu_torch.ops import cws_aka_cuda
+    from hulk_tpu_torch.synth import generate
+
+    _card()
+    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=7)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        before = cws_aka_cuda.launches["cws_aka"]
+        capsys.readouterr()
+        assert cli.main(["sketch", "-f", fq, "-k", "11", "-w", "5", *extra,
+                         "-o", str(tmp_path / dev), "--device", dev]) == 0
+        got[dev] = (capsys.readouterr().out, (tmp_path / f"{dev}.json").read_bytes(),
+                    cws_aka_cuda.launches["cws_aka"] - before)
+    assert got["cuda"][0].count('"signatures"') == 20_000 // 7000 + 1  # the snapshots, the last
+    assert got["cuda"][:2] == got["cpu"][:2]
+    assert (got["cuda"][2], got["cpu"][2]) == (20_000 // 7000 + 1, 0)
