@@ -66,17 +66,14 @@ Phases, each printing its seconds:
      list: (8a) `-i 1000000 -x 0.9 --stream --checkpoint`, reads/s, ten
      interval documents and the final one on stdout, the streaming
      thread's waits on the flush worker, and a profiled run over files 0-1;
-     (8b) the card's exact flush against --deviceFlush (out.json
-     byte-identical, no margin fallback), then one interval's flush alone: the candidate
-     stage's device time beside its bound, and the exact host flush without
-     and with drift; (8c) a run over files 0-4 with --checkpoint, resumed
+     (8b) the same files without drift, and with --deviceFlush, which takes
+     the same exact flush on the card: out.json byte-identical; (8c) a run over files 0-4 with --checkpoint, resumed
      over all ten: it seeks to file 4 and gives 8a's out.json; (8d) the
      first 50,000 reads with -i 10000 --stream --streamAll and the three
      sketches, and with --deviceFlush against the host flush on the CPU:
      stdout and out.json byte-identical card vs CPU. Every run's launches
      are asserted: the packed minimizer and the fused binning pass once per
-     batch, and the exact flush's entries once per flush (none with
-     --deviceFlush).
+     batch, and the exact flush's entries once per flush.
   9. smash: 1,024 synthetic sketch JSONs (16 families), `smash -m
      weightedjaccard` and `-m jaccard` on the card and with --device cpu:
      CSV byte-identical, the first 40 sketches' cells equal to the host
@@ -96,7 +93,7 @@ Phases, each printing its seconds:
      over phase 9's sketches, card against --device cpu, index and stdout
      byte-identical; (10e) phase 9's weighted smash in two ranks on the card,
      the CSV byte-identical to phase 9's.
-  11. sharded sketch: the data-parallel stream and the striped device flush
+  11. sharded sketch: the data-parallel stream and the striped exact flush
      on a mesh that names the one card twice ([cuda:0, cuda:0]); none of it
      measures scaling. (11a) run_sketch_pipeline --kmv --khf --hmh over
      phase 3's reads: out.json byte-identical to phase 5's, the packed
@@ -105,10 +102,8 @@ Phases, each printing its seconds:
      shard): out.json byte-identical to phase 6's, the values entry once per
      (batch, shard), the group steps under sync debug mode "error"; (11c)
      --deviceFlush with the CWS tables striped over the two entries,
-     -i 1000000 over phase 8's files 0-1: out.json
-     byte-identical to a one-device host-flush run, no margin fallback, the
-     striped candidate stage bit-equal to the one-device stage and its
-     device time beside its bound; (11d) `sketch --kmv --khf --hmh` in two
+     -i 1000000 over phase 8's files 0-1: out.json byte-identical to a
+     one-device run, the exact flush's entries once a (flush, stripe); (11d) `sketch --kmv --khf --hmh` in two
      ranks sharing the card over phase 8's files 0-3: rank 0's out.json
      byte-identical to one process's, rank 1 writes nothing, both runs'
      wall seconds; (11e) sharded_histogram_step over [cuda:0, cuda:0] on one
@@ -140,8 +135,7 @@ Phases, each printing its seconds:
      minimizer and hulk_jump_hash once each a call; (12d)
      dryrun_multichip(2) on the card against [cpu, cpu].
 Then one JSON line of the device stages that have no TPU kernel (the
-flush's candidate stage, one device and striped, the smash matrix, the LSH
-ranking, the no-drift sharded_flush_step) with device ms and bound, one
+smash matrix, the LSH ranking, the no-drift sharded_flush_step) with device ms and bound, one
 JSON line of kernels (every entry, with its launches summed over the driven
 runs of phases 3, 5, 6, 7, 8, 11 and 12), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure ends the run with a
@@ -1377,7 +1371,7 @@ def reset_flush_stats() -> None:
     from hulk_tpu_torch.ops import distance
     from hulk_tpu_torch.stream import pipeline
 
-    pipeline.flush_stats.update(device_flushes=0, margin_fallbacks=0, flush_waits=[])
+    pipeline.flush_stats.update(flush_waits=[])
     distance.recheck_stats["cells"] = 0
 
 
@@ -1408,16 +1402,10 @@ def generate_files(tmp: str, first: str) -> list[str]:
     return [first, *paths]
 
 
-def fq_histogram(fq: str, device):
-    """The int32 histogram of fq's reads (k=21, w=9) on the device, as one
-    interval's flush gets it."""
-    return fq_histograms(fq, device)[0]
-
-
-def fq_histograms(fq: str, device, cut: int | None = None) -> list:
+def fq_histograms(fq: str, device, cut: int) -> list:
     """The int32 histograms (k=21, w=9) on the device of each `cut` reads of
     fq in turn (cut divides the file's reads), as the interval flushes get
-    them; one histogram of all of them without a cut."""
+    them."""
     from hulk_tpu_torch.stream.fastq import batch_reads_native
     from hulk_tpu_torch.stream.pipeline import SketchConfig, _DeviceStream
 
@@ -1427,84 +1415,24 @@ def fq_histograms(fq: str, device, cut: int | None = None) -> list:
     for b in batch_reads_native([fq], batch_size=cfg.resolved_batch_size(), cut_every=cut,
                                 raw=True):
         dev.feed(b)
-        if cut and b.reads_in_file_end % cut == 0:
+        if b.reads_in_file_end % cut == 0:
             hists.append(dev.take_hist())
-    return hists if cut else [dev.take_hist()]
+    return hists
 
 
-def flush_stage_bound(depth: int, width: int, s: int = 42) -> tuple[float, str]:
-    """The candidate stage's least time. Bytes: histogram, row table, tables
-    read once, CMS read and written; operations: about 6 FP64 a (slot, bin)
-    (subtract, exp, 2 multiplies, divide, compare) and 4 a (row, bin) of
-    the CMS scan."""
+def flush_step_bound(depth: int, width: int, s: int = 42) -> tuple[float, str]:
+    """The no-drift sharded_flush_step's least time. Bytes: histogram, row
+    table, tables read once, CMS read and written; operations: about 6 FP64
+    a (slot, bin) (subtract, exp, 2 multiplies, divide, compare) and 4 a
+    (row, bin) of the CMS prefix sums."""
     nbytes = 4 * NBINS + 8 * depth * NBINS + 3 * 8 * s * NBINS + 2 * 8 * depth * width
     return bound(nbytes, 6 * s * NBINS + 4 * depth * NBINS, FP64_OPS_PER_S)
 
 
-def flush_stage_times(fq: str) -> dict:
-    """One interval's flush, alone, on the histogram of fq's 1M reads: the
-    device candidate stage's device time (profiler) beside its bound, the
-    device flush's wall time (stage, copy back and host recheck), and the
-    exact host flush's wall time (native.flush_exact_native) without and
-    with drift, each on a fresh sketch, median of 3."""
-    import numpy as np
-    import torch
-
-    from hulk_tpu_torch.hashes.cws import get_cws_tables
-    from hulk_tpu_torch.parallel import mesh
-    from hulk_tpu_torch.sketch.histosketch import HistoSketch
-    from hulk_tpu_torch.stream.pipeline import _DeviceFlusher
-
-    hist = fq_histogram(fq, torch.device("cuda", 0))
-    tables = get_cws_tables(42, NBINS)
-    flusher = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS,
-                             [hist.device])
-    stage_ms = profiled_device_ms(lambda: mesh.striped_flush_candidates(
-        hist, flusher.row_bins, flusher.cms, flusher.stripes),
-        tag="device flush candidate stage")
-    depth, width = flusher.cms.shape
-    used = int((hist != 0).sum())
-    stage_bound = flush_stage_bound(depth, width)
-
-    def wall(fn) -> float:
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return sorted(times)[1]
-
-    def device_flush():
-        f = _DeviceFlusher(HistoSketch(21, 42, NBINS, 1.0, tables=tables), NBINS,
-                           [hist.device])
-        t0 = time.perf_counter()
-        f.flush_from(hist)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    h = hist.cpu().numpy().astype(np.float64)
-    ids = np.nonzero(h)[0].astype(np.int64)
-    host = {}
-    for decay in (1.0, 0.9):
-        def one(decay=decay):
-            HistoSketch(21, 42, NBINS, decay, tables=tables).add_elements(ids, h[ids])
-        host[decay] = wall(one)
-    dev_wall = sorted(device_flush() for _ in range(3))[1]
-    print(f"one interval's flush (1M reads, {used} bins used of {NBINS}, s=42): device "
-          f"candidate stage {stage_ms:.4f} ms device time (bound {stage_bound[0]:.4f} ms by "
-          f"{stage_bound[1]}), device flush {1e3 * dev_wall:.3f} ms wall; host flush alone "
-          f"(native) {1e3 * host[1.0]:.3f} ms without drift, {1e3 * host[0.9]:.3f} ms with "
-          f"-x 0.9", flush=True)
-    return dict(name="device_flush_candidates", source="hulk_tpu_torch/parallel/mesh.py",
-                counterpart="hulk_tpu/parallel/mesh.py:330", ms=stage_ms,
-                bound_ms=stage_bound[0], bound_by=stage_bound[1],
-                shape=f"nbins={NBINS} s=42 depth={depth} width={width}")
-
-
-def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[list, list]:
+def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> list:
     """Phase 8 (cell d): BASELINE config 4's stream, 10M reads in ten files,
     -i 1000000 -x 0.9, and the interval machinery around it. Returns the
-    device stages and the ten files."""
+    ten files."""
     from hulk_tpu_torch.stream import pipeline
     from hulk_tpu_torch.stream.fastq import batch_reads_native
 
@@ -1543,8 +1471,7 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[
     profiled("8a_files_0_1", ",".join(files[:2]), tmp,
              (*every, "-x", "0.9", "--stream", "--checkpoint", os.path.join(tmp, "ck_prof.npz")))
 
-    # (8b) the card's exact flush against --deviceFlush, no drift
-    reset_flush_stats()
+    # (8b) no drift, and --deviceFlush, which takes the same exact flush
     t_host, _, counts = drive("8b_host", src, tmp, every)
     path_launches["8b_host"] = counts
     check_launches("8b host", counts, n_reads)
@@ -1552,21 +1479,15 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[
     t_dev, _, counts = drive("8b_device", src, tmp, (*every, "--deviceFlush"))
     path_launches["8b_device"] = counts
     check_launches("8b device", counts, n_reads)
-    check_flush_launches("8b device", counts, 0, False)
-    stats = dict(pipeline.flush_stats)
+    check_flush_launches("8b device", counts, len(files), False)
+    out = {}
     for name in ("8b_host", "8b_device"):
         with open(os.path.join(tmp, f"{name}.json"), "rb") as fh:
-            stats[name] = fh.read()
-    if stats["8b_host"] != stats["8b_device"]:
-        raise SystemExit("FAIL 8b: --deviceFlush out.json differs from the exact flush's")
-    if stats["margin_fallbacks"] or stats["device_flushes"] != len(files):
-        raise SystemExit(f"FAIL 8b: {stats['device_flushes']} device flushes, "
-                         f"{stats['margin_fallbacks']} margin fallbacks")
-    print(f"8b: exact flush {t_host:.3f} s = {n_reads / t_host:.0f} reads/s; --deviceFlush "
-          f"{t_dev:.3f} s = {n_reads / t_dev:.0f} reads/s; out.json byte-identical; "
-          f"{stats['device_flushes']} device flushes, 0 margin fallbacks", flush=True)
-    stage = flush_stage_times(fq)
-    stage["launches"] = stats["device_flushes"]
+            out[name] = fh.read()
+    if out["8b_host"] != out["8b_device"]:
+        raise SystemExit("FAIL 8b: --deviceFlush out.json differs from the default run's")
+    print(f"8b: no drift {t_host:.3f} s = {n_reads / t_host:.0f} reads/s; --deviceFlush "
+          f"{t_dev:.3f} s = {n_reads / t_dev:.0f} reads/s; out.json byte-identical", flush=True)
 
     # (8c) a run killed after file 4, resumed over all ten by seeking
     ck = os.path.join(tmp, "ck_cut.npz")
@@ -1609,7 +1530,7 @@ def interval_phase(fq: str, small: str, tmp: str, path_launches: dict) -> tuple[
             raise SystemExit(f"FAIL 8d {label}: stdout or out.json differs card vs CPU")
         print(f"8d {label}, first {SUBSET_READS} reads: stdout ({len(got['cuda'][0])} bytes) "
               f"and out.json byte-identical card vs CPU", flush=True)
-    return [stage], files
+    return files
 
 
 def matrix_bound(n: int, s: int, weighted: bool) -> tuple[float, str]:
@@ -2007,14 +1928,13 @@ def sharded_run(tag: str, srcs: list, tmp: str, mesh_devs: list, **kw):
 
 
 def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
-                  t5: float) -> list:
-    """Phase 11 (cell g): the data-parallel stream and the striped device
+                  t5: float) -> None:
+    """Phase 11 (cell g): the data-parallel stream and the striped exact
     flush on a mesh that names the one card twice, two ranks sharing the
     card, and sharded_histogram_step. t5: phase 5's seconds."""
     import numpy as np
     import torch
 
-    from hulk_tpu_torch.hashes.cws import get_cws_tables
     from hulk_tpu_torch.ops.device_step import (
         bin_scatter_keys,
         sorted_batch_keys,
@@ -2022,8 +1942,6 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
     )
     from hulk_tpu_torch.ops.minimizer import minimizer_window_packed
     from hulk_tpu_torch.parallel import mesh
-    from hulk_tpu_torch.sketch.histosketch import HistoSketch
-    from hulk_tpu_torch.stream import pipeline
     from hulk_tpu_torch.synth import kernel_batch
 
     two = [dev, dev]
@@ -2064,49 +1982,22 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
           f"byte-identical to phase 6's; {steps} (batch, shard) steps in {groups[0]} group "
           f"steps, none with a host sync (sync debug mode \"error\")", flush=True)
 
-    # 11c: the device flush with the tables striped over the two entries
+    # 11c: --deviceFlush with the tables striped over the two entries
     src2 = ",".join(files[:2])
     t_host, _ = sketch_cli(src2, os.path.join(tmp, "11c_host"), "cuda",
                            os.path.join(tmp, "11c_host.log"), ("-i", str(READS)))
     with open(os.path.join(tmp, "11c_host.json"), "rb") as fh:
         want_c = fh.read()
-    reset_flush_stats()
     seconds, counts, got = sharded_run("11c", files[:2], tmp, two, interval=READS,
                                        device_flush=True)
     path_launches["11c"] = counts
-    stats = dict(pipeline.flush_stats)
     if got != want_c:
-        raise SystemExit("FAIL 11c: the striped device flush's out.json differs from the "
-                         "one-device exact flush's")
-    if stats["margin_fallbacks"] or stats["device_flushes"] != 2:
-        raise SystemExit(f"FAIL 11c: {stats['device_flushes']} device flushes, "
-                         f"{stats['margin_fallbacks']} margin fallbacks")
-    hist = fq_histogram(fq, dev)
-    hs = HistoSketch(21, 42, NBINS, 1.0, tables=get_cws_tables(42, NBINS))
-    one = pipeline._DeviceFlusher(hs, NBINS, [dev])
-    striped = pipeline._DeviceFlusher(hs, NBINS, two)
-    a = mesh.striped_flush_candidates(hist, one.row_bins, one.cms, one.stripes)
-    b = mesh.striped_flush_candidates(hist, striped.row_bins, striped.cms, striped.stripes)
-    for x, y, name in zip(a, b, ("cms_out", "bins", "esti", "live", "margin")):
-        if not torch.equal(x, y):
-            raise SystemExit(f"FAIL 11c: the striped candidate stage's {name} differs from "
-                             f"the one-device stage's")
-    stage_ms = profiled_device_ms(lambda: mesh.striped_flush_candidates(
-        hist, striped.row_bins, striped.cms, striped.stripes),
-        tag="striped candidate stage, 2 stripes")
-    depth, width = striped.cms.shape
-    b11 = flush_stage_bound(depth, width)
+        raise SystemExit("FAIL 11c: the striped --deviceFlush out.json differs from the "
+                         "one-device run's")
+    check_flush_launches("11c", counts, 2, False, stripes=2)
     print(f"11c --deviceFlush -i {READS} over files 0-1 on [{dev}, {dev}]: "
-          f"{2 * READS / seconds:.0f} reads/s (one-device exact flush {2 * READS / t_host:.0f}); "
-          f"out.json byte-identical; {stats['device_flushes']} device flushes, 0 margin "
-          f"fallbacks; the striped stage bit-equal to the one-device stage on 1M reads' "
-          f"histogram, {stage_ms:.4f} ms device time (bound {b11[0]:.4f} ms by {b11[1]})",
-          flush=True)
-    stage = dict(name="striped_flush_candidates", source="hulk_tpu_torch/parallel/mesh.py",
-                 counterpart="hulk_tpu/parallel/mesh.py:330", ms=stage_ms, bound_ms=b11[0],
-                 bound_by=b11[1], launches=stats["device_flushes"],
-                 shape=f"nbins={NBINS} s=42 depth={depth} width={width}, 2 stripes")
-    del hist, one, striped, a, b
+          f"{2 * READS / seconds:.0f} reads/s (one device {2 * READS / t_host:.0f}); "
+          f"out.json byte-identical; 2 flushes, each entry once a stripe", flush=True)
 
     # 11d: two ranks share the card over files 0-3, against one process
     src4 = ",".join(files[:4])
@@ -2159,7 +2050,6 @@ def sharded_phase(fq: str, files: list, tmp: str, dev, path_launches: dict,
                          f"hulk_jump_hash once a shard")
     print(f"11e sharded_histogram_step on [{dev}, {dev}], one [{R}, {L}] batch: histogram "
           f"and count ({int(count)}) equal to the fused step's; launches {counts}", flush=True)
-    return [stage]
 
 
 def host_flushes(hists: list, tables, decay: float):
@@ -2336,7 +2226,7 @@ def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None,
     import torch
 
     from hulk_tpu_torch.ops import flush_drift_cuda as fdc
-    from hulk_tpu_torch.parallel.mesh import _aka
+    from hulk_tpu_torch.ops.cws_aka import cws_aka_torch
     from hulk_tpu_torch.sketch.countmin import cms_shape
 
     ids = torch.nonzero(hist).flatten()[:prefix]
@@ -2351,7 +2241,7 @@ def drift_entry_ms(dev, hist, tables, rb, dw: float, prefix: int | None = None,
         lambda: scan(freqs.data_ptr(), rows.data_ptr(), n, cms0.data_ptr(), cms_out.data_ptr(),
                      depth, width, dw, est_rows.data_ptr(), stream), reps=10, warm=2)}
     res["out"] = {"CMS": cms_out, "estimates": est_rows}
-    akas = {"drift_select": _aka(est_rows.amin(0), torch.ones_like(ids, dtype=torch.bool), *(
+    akas = {"drift_select": cws_aka_torch(est_rows.amin(0), torch.arange(n, device=dev), *(
         torch.tensor(np.ascontiguousarray(t[:, ids.cpu().numpy()]), device=dev)
         for t in (tables.c, tables.b, tables.exp_r)))}
     if worst:
@@ -2420,7 +2310,7 @@ def drift_checks(dev, case: str, hist, tables, row_bins, dw: float,
 
     from hulk_tpu_torch.ops import flush_drift as fd
     from hulk_tpu_torch.ops import flush_drift_cuda as fdc
-    from hulk_tpu_torch.parallel.mesh import _aka
+    from hulk_tpu_torch.ops.cws_aka import cws_aka_torch
     from hulk_tpu_torch.sketch.countmin import cms_shape
 
     ids = torch.nonzero(hist).flatten()[:prefix]
@@ -2435,7 +2325,7 @@ def drift_checks(dev, case: str, hist, tables, row_bins, dw: float,
     check_equal(f"cms_drift_scan estimates, {case}", esti_k, esti_p)
     c, b, exp_r = (torch.tensor(np.ascontiguousarray(t[:, ids.cpu().numpy()]), device=dev)
                    for t in (tables.c, tables.b, tables.exp_r))
-    aka = _aka(esti_p, torch.ones_like(ids, dtype=torch.bool), c, b, exp_r)
+    aka = cws_aka_torch(esti_p, torch.arange(ids.numel(), device=dev), c, b, exp_r)
     s = aka.shape[0]
     sk = torch.zeros(s, dtype=torch.int64, device=dev)
     w = torch.full((s,), np.finfo(np.float64).max, dtype=torch.float64, device=dev)
@@ -2506,7 +2396,7 @@ def flush_step_phase(fq: str, dev, path_launches: dict,
     check_against_host("12a sharded_flush_step, no drift", two, host_flushes(halves, tables, 1.0))
     stage_ms = profiled_device_ms(lambda: step2(halves[0], rb, *empty(), stripes2),
                                   tag="sharded_flush_step, no drift, 2 stripes")
-    b12 = flush_stage_bound(depth, width)
+    b12 = flush_step_bound(depth, width)
     print(f"12a sharded_flush_step, no drift, on [{dev}, {dev}]: two flushes of phase 3's "
           f"halves ({live[0]} and {live[1]} bins used of {NBINS}, s=42): CMS, bins and "
           f"weights bit-equal to the host flush's; 2 stripes bit-equal to 1; {stage_ms:.4f} "
@@ -2783,16 +2673,16 @@ def main() -> int:
             long_read_times(sub)
 
         with phase("8 intervals (d)"):
-            stages, files = interval_phase(fq, small, tmp, path_launches)
+            files = interval_phase(fq, small, tmp, path_launches)
 
         with phase("9 smash (e)"):
-            stages += smash_phase(tmp)
+            stages = smash_phase(tmp)
 
         with phase("10 LSH (f)"):
             stages += lsh_phase(tmp, dev)
 
         with phase("11 sharded sketch (g)"):
-            stages += sharded_phase(fq, files, tmp, dev, path_launches, t5)
+            sharded_phase(fq, files, tmp, dev, path_launches, t5)
 
         with phase("12 flush step and entry points"):
             more, drift_rows = flush_step_phase(fq, dev, path_launches, chain_build)

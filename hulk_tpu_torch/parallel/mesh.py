@@ -1,14 +1,12 @@
 """The devices a process runs on, as a dp and mp "mesh": the per-shard group
 step of the data-parallel stream, the CWS tables striped over sketch slots
-(uploaded once a process), the no-drift flush's candidate stage
-(--deviceFlush) on one device or striped, the sharded histogram step, and
-the whole flush as one exact device step over slot stripes, with or without
-drift (sharded_flush_step).
+(uploaded once a process), the sharded histogram step, and the whole flush
+as one exact device step over slot stripes, with or without drift
+(sharded_flush_step).
 
 Counterpart of hulk_tpu/parallel/mesh.py (make_sketch_mesh,
 make_sharded_group_step, sharded_histogram_step, sharded_flush_step,
-make_device_flush_candidates over the mp axis, shard_tables,
-FLUSH_MARGIN_REL, FLUSH_TOP_T). A mesh here is a list of torch.devices,
+shard_tables). A mesh here is a list of torch.devices,
 which may name one device more than once: that is how the CPU tests and a
 machine with one card run the sharded paths. Rows (dp) and slots (mp) go to
 the devices in contiguous stripes of ceil(n / D); the stream's shards step
@@ -28,17 +26,6 @@ import numpy as np
 import torch
 
 from hulk_tpu_torch import spans
-
-# Relative margin of the argmin recheck. The device's f64 exp/log (CUDA's,
-# or torch's CPU kernels) are within a few ULP of Go's fdlibm each, so a
-# device Aka is within ~1e-15 of the exact value; 1e-12 leaves three orders
-# of magnitude of slack. Every element whose device Aka lies within this
-# margin of the slot's best is counted; when more than FLUSH_TOP_T are, the
-# caller falls back to the exact host flush, so exactness never rests on
-# the device's transcendentals.
-FLUSH_MARGIN_REL = 1e-12
-FLUSH_TOP_T = 8
-
 
 def make_sketch_mesh(n_dp: int | None = None, devices=None) -> list:
     """The first n_dp of `devices` (default: every CUDA device visible to
@@ -188,65 +175,6 @@ def _estimates(hist, row_bins, cms):
     return torch.stack(rows), torch.stack(estis).amin(0), freqs != 0.0
 
 
-def _aka(esti, live, c, b, exp_r):
-    """Aka = c / (exp(log(esti) - b) * exp_r) of every (slot, bin) of a
-    stripe's tables, +inf where the bin is not live."""
-    lf = torch.log(torch.where(live, esti, 1.0))
-    aka = c / (torch.exp(lf[None, :] - b) * exp_r)
-    return torch.where(live[None, :], aka, float("inf"))
-
-
-def _slot_candidates(esti, live, c, b, exp_r, top_t: int):
-    """One stripe of slots: the top_t smallest Aka of each slot (indices)
-    and its margin count. Every slot's row depends on that slot's tables
-    alone, so a stripe gives the rows the whole table gives."""
-    aka = _aka(esti, live, c, b, exp_r)
-    top, idx = torch.topk(aka, top_t, dim=1, largest=False, sorted=True)
-    best = top[:, 0]
-    # sign-safe: best + |best| * rel, plus a tiny term for best == 0
-    thresh = best + best.abs() * FLUSH_MARGIN_REL + 1e-300
-    return idx, (aka <= thresh[:, None]).sum(1, dtype=torch.int32)
-
-
-def striped_flush_candidates(hist, row_bins, cms, table_stripes: list,
-                             top_t: int = FLUSH_TOP_T):
-    """The candidate stage with the tables striped over devices
-    (make_device_flush_candidates over mp). The CMS prefix sums and the
-    estimates are computed once, on the device of hist; each stripe's
-    device takes its slots' Aka, top-T and margin count; the outputs are
-    concatenated in slot order on hist's device. Returns what
-    device_flush_candidates returns, bit for bit, for any stripes."""
-    cms_out, esti, live = _estimates(hist, row_bins, cms)
-    idx, margin = [], []
-    for c, b, exp_r in table_stripes:
-        if c.shape[0] == 0:
-            continue
-        i, m = _slot_candidates(esti.to(c.device), live.to(c.device), c, b, exp_r, top_t)
-        idx.append(i.to(esti.device))
-        margin.append(m.to(esti.device))
-    idx = torch.cat(idx)
-    return cms_out, idx, esti[idx], live[idx], torch.cat(margin)
-
-
-def device_flush_candidates(hist, row_bins, cms, c, b, exp_r, top_t: int = FLUSH_TOP_T):
-    """One no-drift flush of a dense histogram, device stage, on one device.
-
-    (hist [nbins] int32, row_bins [depth, nbins] int64, cms [depth, width]
-    f64, c/b/exp_r [s, nbins] f64) -> (cms_out [depth, width] f64,
-    cand_bins [s, T] int64, cand_esti [s, T] f64, cand_live [s, T] bool,
-    margin [s] int32).
-
-    The CMS update and each live bin's frequency estimate are exact
-    (_estimates). Only Aka = c / (exp(log(esti) - b) * exp_r) uses the
-    device's exp/log; the host stage (HistoSketch.apply_flush_candidates)
-    recomputes the T candidates of each slot with the Go ports and keeps
-    the reference's selection. That is exact whenever margin <= T: the
-    margin's elements are then the T smallest whatever topk's order among
-    ties.
-    """
-    return striped_flush_candidates(hist, row_bins, cms, [(c, b, exp_r)], top_t)
-
-
 def sharded_flush_step(devices: list, decay_weight: float, apply_drift: bool, depth: int,
                        width: int):
     """The histosketch flush as one device step over slot stripes
@@ -271,7 +199,8 @@ def sharded_flush_step(devices: list, decay_weight: float, apply_drift: bool, de
     the weight itself without (decay weight 1, the first index of the
     minimum where it is below the weight). Stripes join in slot order,
     bit-equal for any number of them. run_sketch_pipeline flushes through
-    this step on CUDA devices in one process (stream/pipeline.py)."""
+    this step on CUDA devices in one process, and with device_flush
+    (stream/pipeline.py)."""
     from hulk_tpu_torch.ops.cws_aka import cws_aka
     from hulk_tpu_torch.ops.flush_drift import cms_drift_scan, drift_select
 

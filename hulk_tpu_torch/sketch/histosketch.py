@@ -61,45 +61,6 @@ class HistoSketch:
         esti = self.cms.add(bin_id, value)
         self._cws_update(int(bin_id), esti)
 
-    def apply_flush_candidates(self, cand_bins, cand_esti, cand_live,
-                               margin_count, top_t: int) -> bool:
-        """Host stage of the production device flush (no-drift only).
-
-        The device stage (parallel/mesh.make_device_flush_candidates) hands
-        back, per sketch slot, the TOP_T elements by device-approximate Aka
-        with their EXACT frequency estimates. This recomputes those few
-        Akas with the bit-exact Go exp/log ports and applies the
-        reference's replace-if-strictly-smaller selection (ties at the
-        exact minimum go to the smallest bin — the ascending-bin sequential
-        loop keeps the first). Returns False when some slot's margin count
-        exceeds top_t (the exact winner might not be among the candidates);
-        the caller must then fall back to the full host flush.
-        """
-        if self.apply_concept_drift:
-            raise ValueError("device flush supports decay_ratio=1.0 only")
-        if int(np.max(margin_count)) > top_t:
-            return False
-        cand_bins = np.asarray(cand_bins)
-        cand_esti = np.asarray(cand_esti, dtype=np.float64)
-        cand_live = np.asarray(cand_live)
-        s = self.sketch_size
-        rows = np.arange(s)[:, None]
-        with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
-            lf = go_log(np.where(cand_live, cand_esti, 1.0))
-            b_t = self.cws.b[rows, cand_bins]
-            yka = go_exp(lf - b_t)
-            aka = self.cws.c[rows, cand_bins] / (yka * self.cws.exp_r[rows, cand_bins])
-        aka = np.where(cand_live, aka, np.inf)
-        # exact min per slot; ties -> smallest bin (first in the ascending
-        # sequential order keeps the slot)
-        best = aka.min(axis=1)
-        tie_bins = np.where(aka == best[:, None], cand_bins, np.iinfo(np.int64).max)
-        best_bin = tie_bins.min(axis=1)
-        better = best < self.sketch_weights
-        self.sketch[better] = best_bin[better].astype(np.uint64)
-        self.sketch_weights[better] = best[better]
-        return True
-
     def _cws_update(self, bin_id: int, esti_freq: float) -> None:
         yka = go_exp(go_log(esti_freq) - self.cws.b[:, bin_id])
         aka = self.cws.c[:, bin_id] / (yka * self.cws.exp_r[:, bin_id])

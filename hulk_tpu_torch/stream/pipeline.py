@@ -1,9 +1,9 @@
 """The sketch pipeline: reads -> minimizers -> spectrum -> histosketch.
 
 Counterpart of hulk_tpu/stream/pipeline.py (SketchConfig, _DeviceStream,
-the data-parallel _ShardedDeviceStream, the checkpoint format,
-_DeviceFlusher and run_sketch_pipeline) on a list of PyTorch devices. The
-native parser feeds
+the data-parallel _ShardedDeviceStream, the checkpoint format, the device
+flusher and run_sketch_pipeline) on a list of PyTorch devices. The native
+parser feeds
 fixed-shape batches of FASTQ reads or FASTA records; groups of GROUP batches
 are packed into one pinned host buffer (native pack_group2), copied to the
 device once, and stepped batch by batch (ops/device_step.py) into an int32
@@ -17,20 +17,20 @@ boundaries are global read indices, as in the reference, so the output does
 not depend on batching or on the device.
 
 Each interval's flush runs in one background worker while the next
-interval streams. On CUDA devices in one process every flush, the interval
-flushes and the last, runs exactly on the card (_CardFlusher:
-mesh.sharded_flush_step, Go's Exp and Log in a kernel); on the CPU, or
-with several processes, the exact host flush (native); with device_flush
-the device candidate stage (parallel/mesh.py) and the exact host recheck.
-At most one flush is in flight. After it, the --stream callback gets a
-snapshot and, with checkpoint_path, the state goes to disk in hulk_tpu's
-checkpoint format, so that a run checkpointed by either package resumes in
-the other.
+interval streams. On CUDA devices in one process, or with device_flush,
+every flush, the interval flushes and the last, runs exactly on the
+stream's devices (_CardFlusher: mesh.sharded_flush_step, Go's Exp and Log
+in a kernel on the card, their plain versions on the CPU); otherwise, on
+the CPU or with several processes, the exact host flush (native). Both
+routes give the same bits. At most one flush is in flight. After it, the
+--stream callback gets a snapshot and, with checkpoint_path, the state
+goes to disk in hulk_tpu's checkpoint format, so that a run checkpointed
+by either package resumes in the other.
 
 Given more than one device (SketchConfig.devices) the stream shards each
 batch's rows over them (_ShardedDeviceStream, each device with its own
-carries, stepped in a thread of its own) and the device flush stripes the
-CWS tables over them (parallel/mesh.py). hulk_tpu's
+carries, stepped in a thread of its own) and _CardFlusher stripes the
+CWS tables over them by slots (parallel/mesh.py). hulk_tpu's
 per-batch _dispatch_legacy is not ported: it serves hosts without the
 native library and k too large for the fused step, and the port needs the
 native library while group_scan_body takes the two-sort step at k >= 23.
@@ -67,7 +67,7 @@ from hulk_tpu_torch.parallel import mesh
 from hulk_tpu_torch.sketch.histosketch import HistoSketch
 from hulk_tpu_torch.sketch.hyperminhash import HyperMinHash
 from hulk_tpu_torch.sketch.minhash import KHFSketch, KMVSketch
-from hulk_tpu_torch.sketch.spectrum import KmerSpectrum
+from hulk_tpu_torch.sketch.spectrum import MIN_USED_BINS, KmerSpectrum, SpectrumError
 from hulk_tpu_torch.stream.fastq import (
     LongRead,
     batch_reads,
@@ -84,11 +84,9 @@ MAX_BATCH_POSITIONS = 16384 * 2048
 
 CHECKPOINT_MAGIC = "hulk_checkpoint_v1"
 
-# Counters of the interval machinery, for measurement: --deviceFlush's
-# flushes run, its margin-overflow fallbacks to the host flush, and the seconds the
-# streaming thread waited on the flush worker, one entry a wait. Callers
-# reset them as they see fit.
-flush_stats = {"device_flushes": 0, "margin_fallbacks": 0, "flush_waits": []}
+# The seconds the streaming thread waited on the flush worker, one entry a
+# wait, for measurement. Callers reset them as they see fit.
+flush_stats = {"flush_waits": []}
 
 
 @dataclass
@@ -107,7 +105,7 @@ class SketchConfig:
     file_name: str = ""
     batch_size: int = 0  # 0 -> auto: largest fused-step-capable R (<= 16384)
     device: str = "cuda"
-    device_flush: bool = False  # no-drift flush's candidate stage on the device
+    device_flush: bool = False  # every flush on the devices (_CardFlusher), as on CUDA
     input_paths: list | None = None  # set -> native C++ parser feeds batches
     checkpoint_path: str | None = None  # write a snapshot after each interval
     resume_from: str | None = None  # restore a snapshot and skip its reads
@@ -416,37 +414,35 @@ def _load_checkpoint(path, cfg, hs, kmv, khf, hmh):
     )
 
 
-class _DeviceFlusher:
-    """The no-drift histosketch flush with its candidate stage on the
-    device: the CMS update and the frequency estimates exact on the device,
-    the CWS argmin there with the device's exp/log, and the top-T
-    candidates of each slot rechecked on the host with the Go ports
-    (HistoSketch.apply_flush_candidates): bit-identical to the host flush,
-    with a full host flush in the rare case that the margin count exceeds T.
+class _CardFlusher:
+    """Every histosketch flush on the stream's devices, exact: the CMS scan
+    with drift (or the exact prefix sums without), Aka with Go's Exp and
+    Log, and each slot's replace-if-below scan in bin order
+    (mesh.sharded_flush_step), bit for bit the host flush's
+    (HistoSketch.add_elements), drift or not, any number of stripes.
 
     The CMS stays on devices[0] between flushes; the CWS tables go to the
     devices once a process, striped over them by slots
-    (mesh.cached_table_stripes), and each device ranks its own slots
-    (mesh.striped_flush_candidates). hs.sketch
-    and hs.sketch_weights stay on the host and are updated after every
-    flush; hs.cms.sketch is brought up to date on demand (checkpoints, end
-    of run)."""
+    (mesh.cached_table_stripes). Only the sketch's bins and weights come
+    back after a flush, into hs, where the snapshots and the final document
+    read them; hs.cms.sketch is brought up to date on demand (sync_cms:
+    checkpoints, end of run). The reference's errors come at the same
+    points: a no-op on an untouched histogram, SpectrumError below
+    MIN_USED_BINS."""
 
     def __init__(self, hs: HistoSketch, nbins: int, devices: list):
-        from hulk_tpu_torch.sketch.spectrum import MIN_USED_BINS, SpectrumError
-
         self.hs = hs
         self.nbins = nbins
-        self._min_used = MIN_USED_BINS
-        self._spectrum_error = SpectrumError
-        self.top_t = mesh.FLUSH_TOP_T
         device = devices[0]
         depth, width = hs.cms.sketch.shape
         self.row_bins = mesh.cached_row_bins(device, nbins, depth, width)
         self.stripes = mesh.cached_table_stripes(devices, hs.sketch_size, nbins)
         # owned copy (astype copies): on the CPU, .to() would share the
-        # memory of hs.cms.sketch, which the fallback flush mutates in place
+        # memory of hs.cms.sketch, which HistoSketch.add_elements updates
+        # in place
         self.cms = torch.from_numpy(hs.cms.sketch.astype(np.float64)).to(device)
+        self.step = mesh.sharded_flush_step(devices, hs.cms.decay_weight,
+                                            hs.apply_concept_drift, depth, width)
 
     def flush_from(self, hist: torch.Tensor) -> None:
         """Consume a device histogram [nbins] (the reference's flush: a
@@ -454,61 +450,8 @@ class _DeviceFlusher:
         used = int((hist != 0).sum())
         if used == 0:
             return
-        if used / float(self.nbins) < self._min_used:
-            raise self._spectrum_error("not used yet")
-        flush_stats["device_flushes"] += 1
-        cms_out, cb, ce, cl, mc = mesh.striped_flush_candidates(
-            hist, self.row_bins, self.cms, self.stripes, top_t=self.top_t)
-        if self.hs.apply_flush_candidates(
-            cb.cpu().numpy(), ce.cpu().numpy(), cl.cpu().numpy(), mc.cpu().numpy(),
-            self.top_t,
-        ):
-            spans.count("flush.device")
-            self.cms = cms_out
-            return
-        # margin overflow: the exact host flush instead, so that exactness
-        # never rests on the device's exp/log
-        flush_stats["margin_fallbacks"] += 1
-        spans.count("flush.host")
-        log.info("\tdevice flush margin overflow; host fallback")
-        self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
-        h = hist.cpu().numpy().astype(np.float64)
-        ids = np.nonzero(h)[0].astype(np.int64)
-        self.hs.add_elements(ids, h[ids])
-        self.cms = torch.from_numpy(
-            self.hs.cms.sketch.astype(np.float64)).to(self.cms.device)
-
-    def sync_cms(self) -> None:
-        """Bring hs.cms.sketch up to date from the device (an owned copy)."""
-        self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
-
-
-class _CardFlusher(_DeviceFlusher):
-    """Every histosketch flush on the stream's devices, exact: the CMS scan
-    with drift (or the exact prefix sums without), Aka with Go's Exp and
-    Log, and each slot's replace-if-below scan in bin order
-    (mesh.sharded_flush_step), bit for bit the host flush's
-    (HistoSketch.add_elements), drift or not, any number of stripes.
-
-    As for _DeviceFlusher, the CMS stays on devices[0] between flushes and
-    the tables go to the devices once a process, striped by slots; only the
-    sketch's bins and weights come back after a flush, into hs, where the
-    snapshots and the final document read them. The reference's errors
-    come at the same points: a no-op on an untouched histogram, SpectrumError
-    below MIN_USED_BINS."""
-
-    def __init__(self, hs: HistoSketch, nbins: int, devices: list):
-        super().__init__(hs, nbins, devices)
-        depth, width = hs.cms.sketch.shape
-        self.step = mesh.sharded_flush_step(devices, hs.cms.decay_weight,
-                                            hs.apply_concept_drift, depth, width)
-
-    def flush_from(self, hist: torch.Tensor) -> None:
-        used = int((hist != 0).sum())
-        if used == 0:
-            return
-        if used / float(self.nbins) < self._min_used:
-            raise self._spectrum_error("not used yet")
+        if used / float(self.nbins) < MIN_USED_BINS:
+            raise SpectrumError("not used yet")
         spans.count("flush.device")
         hs, home = self.hs, self.cms.device
         self.cms, sk, wt = self.step(
@@ -517,12 +460,16 @@ class _CardFlusher(_DeviceFlusher):
         hs.sketch[:] = sk.cpu().numpy().view(np.uint64)
         hs.sketch_weights[:] = wt.cpu().numpy()
 
+    def sync_cms(self) -> None:
+        """Bring hs.cms.sketch up to date from the device (an owned copy)."""
+        self.hs.cms.sketch = self.cms.cpu().numpy().astype(np.float64)
+
 
 def _flush_on_card(devices: list, multi_process: bool) -> bool:
     """Whether every flush runs on the card (_CardFlusher): the stream's
     devices are CUDA devices and one process sketches. Several processes
     merge their spectra on the host and flush there; on the CPU the native
-    host flush stays."""
+    host flush stays unless device_flush asks for _CardFlusher."""
     return not multi_process and all(d.type == "cuda" for d in devices)
 
 
@@ -641,12 +588,8 @@ def run_sketch_pipeline(
             dev = _ShardedDeviceStream(cfg, nbins, devices)
         else:
             dev = _DeviceStream(cfg, nbins, devices[0])
-        if cfg.device_flush:
-            flusher = _DeviceFlusher(hs, nbins, devices)
-        elif _flush_on_card(devices, multi_process):
-            flusher = _CardFlusher(hs, nbins, devices)
-        else:
-            flusher = None
+        flusher = (_CardFlusher(hs, nbins, devices)
+                   if cfg.device_flush or _flush_on_card(devices, multi_process) else None)
 
     def flush():
         # boss.go:112-128: flush is a no-op on an untouched spectrum;

@@ -385,46 +385,6 @@ def test_sketch_options_card_match_cpu(extra, tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("prior", [False, True])
-def test_device_flush_candidates_card_match_cpu(prior, tmp_path, monkeypatch):
-    """The flush's candidate stage (plain PyTorch) on the card against the
-    CPU: cms_out and every live bin's estimate bit-equal, and the flush
-    applied from the card's candidates bit-identical to the exact host
-    flush."""
-    from hulk_tpu_torch.parallel import mesh
-    from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
-    from hulk_tpu_torch.sketch.histosketch import HistoSketch
-
-    dev = _card()
-    monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
-    k, s, n = 11, 16, 11 ** 4
-    rng = np.random.default_rng(int(prior))
-    hist = np.where(rng.random(n) < 0.35, rng.integers(1, 60, n), 0).astype(np.int32)
-    hs = HistoSketch(k, s, n, 1.0)
-    if prior:
-        ids = np.sort(rng.choice(n, 3000, replace=False)).astype(np.int64)
-        hs.add_elements(ids, rng.integers(1, 9, 3000).astype(np.float64))
-    rows = cms_row_bins_table(n, *hs.cms.sketch.shape).astype(np.int64)
-    args = [hist, rows, hs.cms.sketch, hs.cws.c, hs.cws.b, hs.cws.exp_r]
-    cpu = mesh.device_flush_candidates(*(torch.tensor(a) for a in args))
-    card = [x.cpu() for x in mesh.device_flush_candidates(
-        *(torch.tensor(a, device=dev) for a in args))]
-    assert torch.equal(card[0], cpu[0])
-    for j in range(s):  # the estimates of the bins both picked
-        both, a, b = np.intersect1d(card[1][j].numpy(), cpu[1][j].numpy(), return_indices=True)
-        assert both.size and torch.equal(card[2][j][a], cpu[2][j][b])
-    host = HistoSketch(k, s, n, 1.0, tables=hs.cws)
-    host.cms.sketch = hs.cms.sketch.copy()
-    host.sketch, host.sketch_weights = hs.sketch.copy(), hs.sketch_weights.copy()
-    live = np.nonzero(hist)[0].astype(np.int64)
-    host.add_elements(live, hist[live].astype(np.float64))
-    assert hs.apply_flush_candidates(*(x.numpy() for x in card[1:]), mesh.FLUSH_TOP_T)
-    assert np.array_equal(hs.sketch, host.sketch)
-    assert np.array_equal(hs.sketch_weights.view(np.uint64), host.sketch_weights.view(np.uint64))
-    assert np.array_equal(card[0].numpy(), host.cms.sketch)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["weightedjaccard", "jaccard"])
 def test_smash_matrix_card_matches_cpu(metric, tmp_path):
     """smash past 64 sketches (the blocked device matrix): the CSV from the
@@ -444,15 +404,14 @@ def test_smash_matrix_card_matches_cpu(metric, tmp_path):
 @pytest.mark.gpu
 def test_interval_device_flush_card_matches_cpu(tmp_path, monkeypatch):
     """-i with --deviceFlush and --checkpoint: the background flush worker
-    drives the card's candidate stage while the next interval streams; the
-    out.json and the checkpoint equal the CPU's, with no margin fallback."""
+    drives the card's exact flush while the next interval streams, and the
+    CPU runs the same route in its plain versions; the out.json and the
+    checkpoint equal the CPU's."""
     from hulk_tpu_torch import cli
-    from hulk_tpu_torch.stream import pipeline
     from hulk_tpu_torch.synth import generate
 
     _card()
     monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
-    monkeypatch.setitem(pipeline.flush_stats, "margin_fallbacks", 0)
     fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=6)
     for dev in ("cuda", "cpu"):
         assert cli.main(["sketch", "-f", fq, "-k", "11", "-w", "5", "-i", "3000",
@@ -462,7 +421,6 @@ def test_interval_device_flush_card_matches_cpu(tmp_path, monkeypatch):
     a, b = np.load(tmp_path / "cuda.npz"), np.load(tmp_path / "cpu.npz")
     assert sorted(a.files) == sorted(b.files)
     assert all(np.array_equal(a[f], b[f]) for f in a.files)
-    assert pipeline.flush_stats["margin_fallbacks"] == 0
 
 
 @pytest.mark.gpu
@@ -494,16 +452,14 @@ def test_sharded_sims_card_matches_cpu(n, nq):
                                 dict(kmer_size=31, sketch_size=8, kmv=True),
                                 dict(interval=3000, device_flush=True)])
 def test_sharded_pipeline_card_matches_cpu(kw, tmp_path, monkeypatch):
-    """The data-parallel stream on a mesh that names the card twice (and,
-    with --deviceFlush, the CWS tables striped over it): out.json bytes
-    equal one CPU device's."""
-    from hulk_tpu_torch.stream import pipeline
+    """The data-parallel stream on a mesh that names the card twice, the
+    flush's CWS tables striped over it (with and without --deviceFlush):
+    out.json bytes equal one CPU device's."""
     from hulk_tpu_torch.stream.pipeline import SketchConfig, run_sketch_pipeline
     from hulk_tpu_torch.synth import generate
 
     dev = _card()
     monkeypatch.setenv("HULK_TPU_TORCH_CACHE", str(tmp_path / "cache"))
-    monkeypatch.setitem(pipeline.flush_stats, "margin_fallbacks", 0)
     fq = generate(str(tmp_path / "r.fq.gz"), 20_000, seed=7)
     kw = dict(dict(kmer_size=11, window_size=5), **kw)
     card = run_sketch_pipeline(None, SketchConfig(
@@ -511,7 +467,6 @@ def test_sharded_pipeline_card_matches_cpu(kw, tmp_path, monkeypatch):
     cpu = run_sketch_pipeline(None, SketchConfig(input_paths=[fq], device="cpu", **kw))
     assert card.hulk_data.to_json_bytes() == cpu.hulk_data.to_json_bytes()
     assert card.minimizer_count == cpu.minimizer_count
-    assert pipeline.flush_stats["margin_fallbacks"] == 0
 
 
 @pytest.mark.gpu

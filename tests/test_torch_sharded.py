@@ -8,8 +8,8 @@ rows of a batch. The same reads (hulk_tpu_torch.synth, seeded) go through
 the port's sharded pipeline, the port's one-device pipeline and hulk_tpu's
 SketchConfig(device_stream=True, data_parallel=True) on its 8 virtual
 devices. Tolerance: none. The sketch JSON bytes and the counters are
-identical, and the striped candidate stage equals the one-device stage
-array for array, bit for bit.
+identical, and the flush step with its tables striped equals the one-stripe
+step array for array, bit for bit.
 """
 import threading
 
@@ -23,6 +23,7 @@ import hulk_tpu_torch.cli as torch_cli
 from hulk_tpu.ops.encode import pack_reads
 from hulk_tpu.parallel.mesh import make_sketch_mesh as jax_mesh
 from hulk_tpu.parallel.mesh import sharded_histogram_step as jax_histogram_step
+from hulk_tpu_torch.hashes.fdlibm import go_exp
 from hulk_tpu_torch.parallel import mesh
 from hulk_tpu_torch.sketch.countmin import cms_row_bins_table
 from hulk_tpu_torch.sketch.histosketch import HistoSketch
@@ -184,12 +185,11 @@ def test_shards_step_concurrently(inputs, monkeypatch):
 
 
 @pytest.mark.parametrize("nstripes", [1, 2, 3])
-def test_striped_device_flush(inputs, nstripes, monkeypatch):
+def test_striped_device_flush(inputs, nstripes):
     """--deviceFlush with the CWS tables striped over 1, 2 and 3 devices
     (the stream sharded over them too): the one-device device flush's
     output, the host flush's, and hulk_tpu's device flush (its tables
-    striped over its 8 devices); no margin fallback."""
-    monkeypatch.setitem(pipeline.flush_stats, "margin_fallbacks", 0)
+    striped over its 8 devices)."""
     kw = dict(kmer_size=11, window_size=5, sketch_size=8, interval=400)
     src = inputs["reads"]
     got = _port(src, devices=[CPU] * nstripes, device_flush=True, **kw)
@@ -199,10 +199,12 @@ def test_striped_device_flush(inputs, nstripes, monkeypatch):
         input_paths=[src], batch_size=BATCH, device_stream=True, data_parallel=False,
         device_flush=True, **kw))
     assert got == _summary(ref)
-    assert pipeline.flush_stats["margin_fallbacks"] == 0
 
 
 def _flush_inputs(seed: int, k: int = 11, s: int = 8):
+    """A histogram over about a third of the bins, the CMS row table, and
+    the CMS, sketch and weights of an earlier flush, as tensors; and the
+    CWS tables."""
     nbins = k ** 4
     rng = np.random.default_rng(seed)
     hist = np.where(rng.random(nbins) < 0.35, rng.integers(1, 60, nbins), 0).astype(np.int32)
@@ -212,7 +214,8 @@ def _flush_inputs(seed: int, k: int = 11, s: int = 8):
     depth, width = hs.cms.sketch.shape
     return (torch.from_numpy(hist),
             torch.from_numpy(cms_row_bins_table(nbins, depth, width).astype(np.int64)),
-            torch.from_numpy(hs.cms.sketch.copy()), hs.cws)
+            torch.from_numpy(hs.cms.sketch.copy()), torch.from_numpy(hs.sketch.view(np.int64)),
+            torch.from_numpy(hs.sketch_weights.copy()), hs.cws)
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -220,19 +223,26 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return a.view(np.uint64) if a.dtype == np.float64 else a
 
 
+@pytest.mark.parametrize("drift", [False, True], ids=["no_drift", "drift"])
 @pytest.mark.parametrize("nstripes", [1, 2, 3, 5, 9])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_striped_candidates_equal_one_device(seed, nstripes):
-    """The striped candidate stage against device_flush_candidates: cms_out,
-    candidate bins, estimates, live flags and margin counts, array for
-    array, bit for bit. Nine stripes of eight slots leave one empty."""
-    hist, row_bins, cms, tables = _flush_inputs(seed)
-    want = mesh.device_flush_candidates(
-        hist, row_bins, cms, *(torch.tensor(t) for t in (tables.c, tables.b, tables.exp_r)))
-    stripes = mesh.shard_tables([CPU] * nstripes, tables)
+def test_striped_flush_step_equals_one_device(nstripes, drift):
+    """sharded_flush_step with the CWS tables striped over nstripes devices
+    against one stripe, from a CMS and sketch that hold an earlier flush:
+    the CMS, the bins and the weights bit for bit. Nine stripes of eight
+    slots leave one empty."""
+    hist, row_bins, cms, sketch, weights, tables = _flush_inputs(0)
+    dw = float(go_exp(-0.9)) if drift else 1.0
+
+    def run(n: int):
+        devices = [CPU] * n
+        stripes = mesh.shard_tables(devices, tables)
+        step = mesh.sharded_flush_step(devices, dw, drift, *cms.shape)
+        return stripes, step(hist, row_bins, cms, sketch, weights, stripes)
+
+    stripes, got = run(nstripes)
     assert [c.shape[0] for c, _, _ in stripes] == [hi - lo for lo, hi in mesh.stripes(8, nstripes)]
-    got = mesh.striped_flush_candidates(hist, row_bins, cms, stripes)
-    assert len(got) == len(want) == 5
+    _, want = run(1)
+    assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert np.array_equal(_bits(g), _bits(w))
