@@ -342,23 +342,35 @@ void hulk_flush_exact(int64_t n, const int64_t* bins, const double* freqs,
 // the parser's ~500 MB/s of FASTQ). This decoder takes zlib's place for whole
 // members held in memory: table-driven Huffman decoding from a 64-bit bit
 // buffer refilled 8 bytes at a time without a branch, up to three literals a
-// refill, matches copied 8 bytes at a time, and the member's CRC-32 by carry-
-// less multiplication. Each call walks one file's members into memory the
-// caller owns (multi-member .gz is legal FASTQ practice: bgzip's 64 KB
-// blocks, lanes joined with cat). Whatever it finds wrong -- a bad header,
-// code, distance, CRC-32 or size, a member cut short -- it reports and does
-// not guess: the caller then hands that member to zlib, whose verdict holds.
+// refill, a short match (length and distance) to one table lookup, matches
+// copied 8 bytes at a time, and the member's CRC-32 by carry-less
+// multiplication, a block at a time while its output is in cache. Each call
+// walks one file's members into memory the caller owns (multi-member .gz is
+// legal FASTQ practice: bgzip's 64 KB blocks, lanes joined with cat).
+// Whatever it finds wrong -- a bad header, code, distance, CRC-32 or size, a
+// member cut short -- it reports and does not guess: the caller then hands
+// that member to zlib, whose verdict holds.
 
-// A decode table entry: bits 0-7 the bits to consume (the codeword and its
-// extra bits), bits 8-11 the codeword's own length (in a subtable, what is
-// left of it past the main table; in a subtable pointer, the subtable's
-// bits), bits 12-15 flags, bits 16-31 the value (a literal, a length or
-// distance base, a code-length symbol, or a subtable's start).
+// A decode table entry (64 bits): bits 0-7 the bits to consume (the
+// codeword and its extra bits), bits 8-11 the codeword's own length (in a
+// subtable, what is left of it past the main table; in a subtable pointer,
+// the subtable's bits), bits 12-15 flags, bits 16-31 the value (a literal,
+// a length or distance base, a code-length symbol, or a subtable's start).
+// A main-table entry of the literal/length code may hold a whole match
+// (INF_MATCH): a length, whose code and extra bits lie within the index
+// bits, and the distance code that follows them there. Bits 0-7 are then
+// the bits of all of them and the distance's extra bits, bits 8-11 those
+// before the distance's extra bits, bits 16-24 the length, bits 32-47 the
+// distance base. Short matches decode in one lookup, not two in a row:
+// zlib's level 1 codes random bases as matches of 3-5 bytes (99.9% of a
+// FASTQ member's output comes from matches there). 10 index bits keep the
+// per-block fill of those entries (inf_match, 1,024 of them) to a few
+// microseconds.
 enum : uint32_t {
     INF_LITERAL = 1u << 12, INF_SUBTABLE = 1u << 13, INF_EOB = 1u << 14,
-    INF_BAD = 1u << 15,
+    INF_BAD = 1u << 15, INF_MATCH = 1u << 31,
 };
-static const int INF_LIT_BITS = 11, INF_DIST_BITS = 8, INF_PRE_BITS = 7;
+static const int INF_LIT_BITS = 10, INF_DIST_BITS = 8, INF_PRE_BITS = 7;
 static const int INF_LIT_SIZE = (1 << INF_LIT_BITS) + 288 * (1 << (15 - INF_LIT_BITS));
 static const int INF_DIST_SIZE = (1 << INF_DIST_BITS) + 32 * (1 << (15 - INF_DIST_BITS));
 // a fast-loop step writes at most 3 literals or one match of 258, and a match
@@ -369,7 +381,7 @@ enum { INF_OK = 0, INF_BAD_DATA = 1, INF_NO_ROOM = 3 };
 
 struct InfProto {
     // an entry less its codeword length, for each symbol of each alphabet
-    uint32_t lit[288], dist[32], pre[19];
+    uint64_t lit[288], dist[32], pre[19];
     InfProto() {
         static const uint16_t len_base[29] = {
             3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43,
@@ -385,13 +397,13 @@ struct InfProto {
             0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9,
             10, 10, 11, 11, 12, 12, 13, 13};
         for (int s = 0; s < 288; s++)
-            lit[s] = s < 256 ? ((uint32_t)s << 16 | INF_LITERAL)
+            lit[s] = s < 256 ? ((uint64_t)s << 16 | INF_LITERAL)
                    : s == 256 ? INF_EOB
-                   : s < 286 ? ((uint32_t)len_base[s - 257] << 16 | len_extra[s - 257])
+                   : s < 286 ? ((uint64_t)len_base[s - 257] << 16 | len_extra[s - 257])
                    : INF_BAD;
         for (int s = 0; s < 32; s++)
-            dist[s] = s < 30 ? ((uint32_t)dist_base[s] << 16 | dist_extra[s]) : INF_BAD;
-        for (int s = 0; s < 19; s++) pre[s] = (uint32_t)s << 16;
+            dist[s] = s < 30 ? ((uint64_t)dist_base[s] << 16 | dist_extra[s]) : INF_BAD;
+        for (int s = 0; s < 19; s++) pre[s] = (uint64_t)s << 16;
     }
 };
 
@@ -404,8 +416,8 @@ static inline uint32_t inf_reverse(uint32_t code, int len) {
 // Build a canonical Huffman decode table from code lengths (zlib's rules:
 // an over-subscribed set fails; an incomplete one only if it is a lone code
 // of one bit, or the precode; no codes at all leaves every entry bad).
-static bool inf_build(uint32_t* table, int bits, const uint8_t* lens, int nsyms,
-                      const uint32_t* proto, bool precode) {
+static bool inf_build(uint64_t* table, int bits, const uint8_t* lens, int nsyms,
+                      const uint64_t* proto, bool precode) {
     int count[16] = {0};
     for (int s = 0; s < nsyms; s++) count[lens[s]]++;
     count[0] = 0;
@@ -429,9 +441,9 @@ static bool inf_build(uint32_t* table, int bits, const uint8_t* lens, int nsyms,
     int idx = 0, next_sub = 1 << bits, sub_start = 0, sub_bits = 0;
     for (int len = 1; len <= max_len; len++, code <<= 1) {
         for (int k = count[len]; k > 0; k--, code++) {
-            const uint32_t pe = proto[sorted[idx++]];
+            const uint64_t pe = proto[sorted[idx++]];
             if (len <= bits) {
-                const uint32_t e = pe + ((uint32_t)len << 8) + (uint32_t)len;
+                const uint64_t e = pe + ((uint64_t)len << 8) + (uint64_t)len;
                 for (uint32_t i = inf_reverse(code, len); i < (1u << bits); i += 1u << len)
                     table[i] = e;
             } else {
@@ -451,9 +463,9 @@ static bool inf_build(uint32_t* table, int bits, const uint8_t* lens, int nsyms,
                     next_sub += 1 << cur;
                     for (int i = 0; i < (1 << cur); i++) table[sub_start + i] = INF_BAD;
                     table[inf_reverse(prefix, bits)] =
-                        (uint32_t)sub_start << 16 | INF_SUBTABLE | (uint32_t)cur << 8;
+                        (uint64_t)sub_start << 16 | INF_SUBTABLE | (uint64_t)cur << 8;
                 }
-                const uint32_t e = pe + ((uint32_t)sl << 8) + (uint32_t)sl;
+                const uint64_t e = pe + ((uint64_t)sl << 8) + (uint64_t)sl;
                 for (uint32_t i = inf_reverse(code & ((1u << sl) - 1), sl);
                      i < (1u << sub_bits); i += 1u << sl)
                     table[sub_start + i] = e;
@@ -465,19 +477,40 @@ static bool inf_build(uint32_t* table, int bits, const uint8_t* lens, int nsyms,
     return true;
 }
 
+// Give main-table length entries the distance that follows them within the
+// index bits, one pass over the main table for every block, after both
+// tables are built. A length of b bits (code and extra bits) at index i
+// leaves i >> b, where the distance table's entry follows if its code ends
+// within the known bits.
+static void inf_match(uint64_t* t, const uint64_t* dist) {
+    for (uint32_t i = 0; i < (1u << INF_LIT_BITS); i++) {
+        const uint64_t e = t[i];
+        if (e & (INF_LITERAL | INF_SUBTABLE | INF_EOB | INF_BAD)) continue;
+        const uint32_t b = e & 0xff;
+        if (b >= (uint32_t)INF_LIT_BITS) continue;
+        const uint64_t f = dist[(i >> b) & ((1u << INF_DIST_BITS) - 1)];
+        const uint32_t dl = (f >> 8) & 15;  // the distance's code alone
+        if ((f & (INF_SUBTABLE | INF_BAD)) || b + dl > (uint32_t)INF_LIT_BITS) continue;
+        const uint64_t len = (e >> 16) + ((i & ((1u << b) - 1)) >> ((e >> 8) & 15));
+        t[i] = (f >> 16) << 32 | INF_MATCH | len << 16 | (uint64_t)(b + dl) << 8 |
+               (b + (f & 0xff));
+    }
+}
+
 static const InfProto& inf_proto() {
     static const InfProto p;
     return p;
 }
 
 struct InfFixed {
-    uint32_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE];
+    uint64_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE];
     InfFixed() {
         uint8_t lens[288];
         for (int s = 0; s < 288; s++) lens[s] = s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
         inf_build(lit, INF_LIT_BITS, lens, 288, inf_proto().lit, false);
         for (int s = 0; s < 32; s++) lens[s] = 5;
         inf_build(dist, INF_DIST_BITS, lens, 32, inf_proto().dist, false);
+        inf_match(lit, dist);
     }
 };
 
@@ -487,7 +520,7 @@ static const InfFixed& inf_fixed() {
 }
 
 struct Inflater {
-    uint32_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE], pre[1 << INF_PRE_BITS];
+    uint64_t lit[INF_LIT_SIZE], dist[INF_DIST_SIZE], pre[1 << INF_PRE_BITS];
 };
 
 static inline uint64_t inf_load64(const uint8_t* p) {
@@ -498,11 +531,38 @@ static inline uint64_t inf_load64(const uint8_t* p) {
 
 static inline void inf_store64(uint8_t* p, uint64_t v) { memcpy(p, &v, 8); }
 
+// A match's copy in the fast loop: 8 bytes at a time, up to 7 past its end.
+static inline uint8_t* inf_copy(uint8_t* op, uint32_t dist, uint32_t len) {
+    const uint8_t* src = op - dist;
+    uint8_t* dst = op;
+    op += len;
+    if (dist >= 8) {
+        do {
+            inf_store64(dst, inf_load64(src));
+            src += 8;
+            dst += 8;
+        } while (dst < op);
+    } else if (dist == 1) {
+        const uint64_t v = 0x0101010101010101ull * src[0];
+        do {
+            inf_store64(dst, v);
+            dst += 8;
+        } while (dst < op);
+    } else {
+        do *dst++ = *src++; while (dst < op);
+    }
+    return op;
+}
+
+// the CRC-32 state after n more bytes (below, with the CRC-32's code)
+static uint32_t inf_crc_update(uint32_t c, const uint8_t* p, int64_t n);
+
 // One DEFLATE stream from in[0, in_n) into out[0, out_n): INF_OK with the
-// bytes read and written, INF_BAD_DATA, or INF_NO_ROOM.
+// bytes read and written and the CRC-32 of those written, INF_BAD_DATA, or
+// INF_NO_ROOM.
 static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
                           uint8_t* out, int64_t out_n, int64_t* in_used,
-                          int64_t* out_used) {
+                          int64_t* out_used, uint32_t* crc) {
     const uint8_t* ip = in;
     const uint8_t* const ie = in + in_n;
     uint8_t* op = out;
@@ -515,6 +575,7 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
     int64_t over = 0;
     const InfFixed& fixed = inf_fixed();
     const InfProto& proto = inf_proto();
+    uint32_t c = 0xFFFFFFFFu;  // the CRC-32 state of out[0, op)
 
 #define INF_REFILL_SLOW()                                        \
     do {                                                         \
@@ -539,7 +600,10 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
         bl -= (e_) & 0xff;                                       \
     } while (0)
 #define INF_VALUE(e_)                                            \
-    (((e_) >> 16) + (uint32_t)((bb & ((1ull << ((e_) & 0xff)) - 1)) >> (((e_) >> 8) & 15)))
+    ((uint32_t)((e_) >> 16) + (uint32_t)((bb & ((1ull << ((e_) & 0xff)) - 1)) >> (((e_) >> 8) & 15)))
+    // a match entry's distance: its base and the extra bits past its codes
+#define INF_MATCH_DIST(e_)                                       \
+    ((uint32_t)((e_) >> 32) + (uint32_t)((bb & ((1ull << ((e_) & 0xff)) - 1)) >> (((e_) >> 8) & 15)))
 #define INF_SUB(t_, e_)                                          \
     (t_)[((e_) >> 16) + (bb & ((1u << (((e_) >> 8) & 15)) - 1))]
 
@@ -561,6 +625,7 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
             if (ie - p < (int64_t)len) return INF_BAD_DATA;
             if (oe - op < (int64_t)len) return INF_NO_ROOM;
             memcpy(op, p, len);
+            c = inf_crc_update(c, op, len);
             op += len;
             ip = p + len;
             bb = 0;
@@ -570,8 +635,8 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
             continue;
         }
         if (btype == 3) return INF_BAD_DATA;
-        const uint32_t* L = fixed.lit;
-        const uint32_t* D = fixed.dist;
+        const uint64_t* L = fixed.lit;
+        const uint64_t* D = fixed.dist;
         if (btype == 2) {  // dynamic: the code lengths, themselves coded
             static const uint8_t order[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                                               11, 4, 12, 3, 13, 2, 14, 1, 15};
@@ -594,10 +659,10 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
             uint8_t cl[288 + 32] = {0};
             for (uint32_t n = 0; n < total;) {
                 if (bl < 14) INF_REFILL_SLOW();
-                const uint32_t e = st->pre[bb & ((1u << INF_PRE_BITS) - 1)];
+                const uint64_t e = st->pre[bb & ((1u << INF_PRE_BITS) - 1)];
                 if (e & INF_BAD) return INF_BAD_DATA;
                 INF_CONSUME(e);
-                const uint32_t sym = e >> 16;
+                const uint32_t sym = (uint32_t)(e >> 16);
                 if (sym < 16) {
                     cl[n++] = (uint8_t)sym;
                     continue;
@@ -632,19 +697,21 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
             memcpy(dl, cl + hlit, hdist);
             if (!inf_build(st->dist, INF_DIST_BITS, dl, 32, proto.dist, false))
                 return INF_BAD_DATA;
+            inf_match(st->lit, st->dist);
             L = st->lit;
             D = st->dist;
         }
         const uint64_t lmask = (1u << INF_LIT_BITS) - 1, dmask = (1u << INF_DIST_BITS) - 1;
+        uint8_t* const block = op;
         for (;;) {
             if (ie - ip >= 8 && oe - op >= INF_FAST_OUT && over == 0) {
                 // the fast loop: every step starts with >= 56 bits buffered,
                 // enough for a length (20 bits at most) and a distance (28)
                 INF_REFILL_FAST();
-                uint32_t e = L[bb & lmask];
+                uint64_t e = L[bb & lmask];
                 for (;;) {
                     if (e & INF_LITERAL) {
-                        // a main-table literal takes 11 bits at most: three
+                        // a main-table literal takes 10 bits at most: three
                         // fit in one refill
                         INF_CONSUME(e);
                         *op++ = (uint8_t)(e >> 16);
@@ -659,6 +726,18 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
                                 e = L[bb & lmask];
                             }
                         }
+                        if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
+                        INF_REFILL_FAST();
+                        continue;
+                    }
+                    if (e & INF_MATCH) {
+                        const uint32_t len = (e >> 16) & 0x1ff, dist = INF_MATCH_DIST(e);
+                        INF_CONSUME(e);
+                        // 32 bits or more are left: the next lookup need
+                        // not wait for the refill
+                        e = L[bb & lmask];
+                        if ((int64_t)dist > op - out) return INF_BAD_DATA;
+                        op = inf_copy(op, dist, len);
                         if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
                         INF_REFILL_FAST();
                         continue;
@@ -683,7 +762,7 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
                     }
                     const uint32_t len = INF_VALUE(e);
                     INF_CONSUME(e);
-                    uint32_t d = D[bb & dmask];
+                    uint64_t d = D[bb & dmask];
                     if (d & INF_SUBTABLE) {
                         bb >>= INF_DIST_BITS;
                         bl -= INF_DIST_BITS;
@@ -693,24 +772,7 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
                     const uint32_t dist = INF_VALUE(d);
                     INF_CONSUME(d);
                     if ((int64_t)dist > op - out) return INF_BAD_DATA;
-                    const uint8_t* src = op - dist;
-                    uint8_t* dst = op;
-                    op += len;
-                    if (dist >= 8) {
-                        do {
-                            inf_store64(dst, inf_load64(src));
-                            src += 8;
-                            dst += 8;
-                        } while (dst < op);
-                    } else if (dist == 1) {
-                        const uint64_t v = 0x0101010101010101ull * src[0];
-                        do {
-                            inf_store64(dst, v);
-                            dst += 8;
-                        } while (dst < op);
-                    } else {
-                        do *dst++ = *src++; while (dst < op);
-                    }
+                    op = inf_copy(op, dist, len);
                     if (ie - ip < 8 || oe - op < INF_FAST_OUT) break;
                     INF_REFILL_FAST();
                     e = L[bb & lmask];
@@ -718,7 +780,7 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
             }
             // one symbol at a time near either end
             INF_REFILL_SLOW();
-            uint32_t e = L[bb & lmask];
+            uint64_t e = L[bb & lmask];
             if (e & INF_SUBTABLE) {
                 bb >>= INF_LIT_BITS;
                 bl -= INF_LIT_BITS;
@@ -735,22 +797,30 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
                 INF_CONSUME(e);
                 break;
             }
-            const uint32_t len = INF_VALUE(e);
-            INF_CONSUME(e);
-            uint32_t d = D[bb & dmask];
-            if (d & INF_SUBTABLE) {
-                bb >>= INF_DIST_BITS;
-                bl -= INF_DIST_BITS;
-                d = INF_SUB(D, d);
+            uint32_t len, dist;
+            if (e & INF_MATCH) {
+                len = (e >> 16) & 0x1ff;
+                dist = INF_MATCH_DIST(e);
+                INF_CONSUME(e);
+            } else {
+                len = INF_VALUE(e);
+                INF_CONSUME(e);
+                uint64_t d = D[bb & dmask];
+                if (d & INF_SUBTABLE) {
+                    bb >>= INF_DIST_BITS;
+                    bl -= INF_DIST_BITS;
+                    d = INF_SUB(D, d);
+                }
+                if (d & INF_BAD) return INF_BAD_DATA;
+                dist = INF_VALUE(d);
+                INF_CONSUME(d);
             }
-            if (d & INF_BAD) return INF_BAD_DATA;
-            const uint32_t dist = INF_VALUE(d);
-            INF_CONSUME(d);
             if ((int64_t)dist > op - out) return INF_BAD_DATA;
             if (oe - op < (int64_t)len) return INF_NO_ROOM;
             for (uint32_t i = 0; i < len; i++, op++) *op = *(op - dist);
         }
     block_done:
+        c = inf_crc_update(c, block, op - block);
         if (bfinal) break;
     }
     {
@@ -758,12 +828,14 @@ static int inflate_stream(Inflater* st, const uint8_t* in, int64_t in_n,
         if (back < over) return INF_BAD_DATA;  // the stream ran past the input
         *in_used = (ip - (back - over)) - in;
         *out_used = op - out;
+        *crc = ~c;
     }
     return INF_OK;
 #undef INF_REFILL_SLOW
 #undef INF_REFILL_FAST
 #undef INF_CONSUME
 #undef INF_VALUE
+#undef INF_MATCH_DIST
 #undef INF_SUB
 }
 
@@ -856,10 +928,12 @@ static uint32_t inf_crc_fold(const uint8_t* buf, int64_t len, uint32_t crc) {
 }
 #endif
 
-static uint32_t inf_crc32(const uint8_t* p, int64_t n) {
+// The CRC-32 state (the CRC's complement) after n more bytes at p; the
+// inflate folds in each block's output as the block ends, while the bytes
+// are still in cache.
+static uint32_t inf_crc_update(uint32_t c, const uint8_t* p, int64_t n) {
     static const bool table_ready = inf_crc_init();
     (void)table_ready;
-    uint32_t c = 0xFFFFFFFFu;
 #if defined(__x86_64__)
     static const bool clmul = __builtin_cpu_supports("pclmul") && __builtin_cpu_supports("sse4.1");
     if (clmul && n >= 64) {
@@ -870,7 +944,7 @@ static uint32_t inf_crc32(const uint8_t* p, int64_t n) {
     }
 #endif
     for (int64_t i = 0; i < n; i++) c = inf_crc_table[(c ^ p[i]) & 0xff] ^ (c >> 8);
-    return ~c;
+    return c;
 }
 
 // Inflate whole gzip members from in[*pos, in_n) into out[0, cap), member
@@ -890,6 +964,7 @@ int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
     while (p < in_n && n < want) {
         int r = INF_BAD_DATA;
         int64_t q = p + 10, used_in = 0, used_out = 0;
+        uint32_t crc = 0;
         const uint8_t* h = in + p;
         if (in_n - p >= 18 && h[0] == 0x1f && h[1] == 0x8b && h[2] == 8 &&
             !(h[3] & 0xe0)) {
@@ -904,13 +979,13 @@ int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
             if (flg & 2) q += 2;
             if (q < in_n)
                 r = inflate_stream(st, in + q, in_n - q, out + n, cap - n,
-                                   &used_in, &used_out);
+                                   &used_in, &used_out, &crc);
         }
         if (r == INF_OK) {
             q += used_in;
             if (in_n - q < 8 ||
                 (in[q] | (uint32_t)in[q + 1] << 8 | (uint32_t)in[q + 2] << 16 |
-                 (uint32_t)in[q + 3] << 24) != inf_crc32(out + n, used_out) ||
+                 (uint32_t)in[q + 3] << 24) != crc ||
                 (in[q + 4] | (uint32_t)in[q + 5] << 8 | (uint32_t)in[q + 6] << 16 |
                  (uint32_t)in[q + 7] << 24) != (uint32_t)used_out)
                 r = INF_BAD_DATA;
@@ -1215,6 +1290,38 @@ void hulk_pack_group_batch(const uint8_t* codes, int64_t rows_live,
 // >= 4 (N) pack as 0 with the mask bit set; the device rebuilds the exact
 // padded codes as where(pos >= len, 5, where(maskbit, 4, code2)). Requires
 // L % 8 == 0 (every production length bucket is).
+#if defined(__AVX2__)
+static const int64_t PACK2_W = 32;
+// One vector of PACK2_W positions, those from n on past the read (n in
+// 1..PACK2_W): PACK2_W/4 bytes of 2-bit codes into dst, PACK2_W/8 bytes of
+// the N mask into msk.
+static inline void pack2_vector(const uint8_t* s, int64_t n, uint8_t* dst, uint8_t* msk) {
+    const __m256i v = _mm256_loadu_si256((const __m256i*)s);
+    const __m256i live = _mm256_cmpgt_epi8(
+        _mm256_set1_epi8((char)n),
+        _mm256_setr_epi8(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+                         20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31));
+    const __m256i base = _mm256_cmpeq_epi8(_mm256_min_epu8(v, _mm256_set1_epi8(3)), v);
+    const __m256i c = _mm256_and_si256(v, _mm256_and_si256(base, live));
+    // the mask in np.packbits order: each 8 lanes reversed, then one bit a lane
+    const uint32_t m = (uint32_t)_mm256_movemask_epi8(_mm256_shuffle_epi8(
+        _mm256_andnot_si256(base, live),
+        _mm256_setr_epi8(7, 6, 5, 4, 3, 2, 1, 0, 15, 14, 13, 12, 11, 10, 9, 8,
+                         7, 6, 5, 4, 3, 2, 1, 0, 15, 14, 13, 12, 11, 10, 9, 8)));
+    // four codes a byte: c0 + 4 c1 in 16 bits, then + 16 (c2 + 4 c3) in 32,
+    // then the low byte of each 32
+    const __m256i w = _mm256_madd_epi16(_mm256_maddubs_epi16(c, _mm256_set1_epi16(0x0401)),
+                                        _mm256_set1_epi32(0x00100001));
+    const __m256i b = _mm256_shuffle_epi8(
+        w, _mm256_setr_epi8(0, 4, 8, 12, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+                            0, 4, 8, 12, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1));
+    const uint64_t codes = (uint32_t)_mm256_cvtsi256_si32(b) |
+                           (uint64_t)(uint32_t)_mm256_extract_epi32(b, 4) << 32;
+    memcpy(dst, &codes, PACK2_W / 4);
+    memcpy(msk, &m, PACK2_W / 8);
+}
+#endif
+
 void hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
                             int64_t stride, const int32_t* lengths, int64_t R,
                             int64_t L, uint8_t* out_codes, uint8_t* out_mask,
@@ -1233,6 +1340,34 @@ void hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
         }
         const uint8_t* src = codes + r * stride;
         const int64_t len = lengths[r] < L ? lengths[r] : L;
+#if defined(__AVX2__)
+        // each output byte written once: the read a vector at a time (a
+        // vector that would pass the row's end is copied out first, one that
+        // would pass L is written in part), then zeros
+        int64_t p = 0;
+        for (; p < len; p += PACK2_W) {
+            const int64_t n = len - p < PACK2_W ? len - p : PACK2_W;
+            const uint8_t* s = src + p;
+            uint8_t tail[PACK2_W];
+            if (p + PACK2_W > stride) {
+                memset(tail, 0, PACK2_W);
+                memcpy(tail, s, n);
+                s = tail;
+            }
+            if (p + PACK2_W <= L) {
+                pack2_vector(s, n, dst + p / 4, msk + p / 8);
+            } else {
+                uint8_t c[PACK2_W / 4], m[PACK2_W / 8];
+                pack2_vector(s, n, c, m);
+                memcpy(dst + p / 4, c, (L - p) / 4);
+                memcpy(msk + p / 8, m, (L - p) / 8);
+            }
+        }
+        if (p < L) {
+            memset(dst + p / 4, 0, L4 - p / 4);
+            memset(msk + p / 8, 0, L8 - p / 8);
+        }
+#else
         memset(dst, 0, L4);
         memset(msk, 0, L8);
         for (int64_t p = 0; p < len; p++) {
@@ -1243,6 +1378,7 @@ void hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
                 dst[p >> 2] |= (uint8_t)(c << (2 * (p & 3)));
             }
         }
+#endif
         const uint16_t l16 = (uint16_t)len;
         out_lens[r * 2] = (uint8_t)(l16 & 0xFF);
         out_lens[r * 2 + 1] = (uint8_t)(l16 >> 8);
