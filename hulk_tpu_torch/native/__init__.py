@@ -19,6 +19,8 @@ import subprocess
 
 import numpy as np
 
+from hulk_tpu_torch import spans
+
 _SRC = os.path.join(os.path.dirname(__file__), "hulkrt.cpp")
 _lib = None
 _tried = False
@@ -85,7 +87,7 @@ def _load():
     lib.hulk_pack_fastq_par.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.hulk_pack_fasta.restype = ctypes.c_int64
     lib.hulk_pack_fasta.argtypes = [
@@ -104,7 +106,7 @@ def _load():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.hulk_pack_group_batch2.restype = None
+    lib.hulk_pack_group_batch2.restype = ctypes.c_int32
     lib.hulk_pack_group_batch2.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
@@ -121,7 +123,8 @@ def available() -> bool:
 
 
 def set_threads(n: int) -> None:
-    """Honour the CLI's -p for the OpenMP passes (reference NumMinions=p)."""
+    """The team of every OpenMP pass of the native runtime, in whichever
+    thread it runs: the CLI's -p (the reference's GOMAXPROCS = p)."""
     lib = _load()
     if lib is not None:
         lib.hulk_set_threads(int(n))
@@ -475,33 +478,44 @@ class NativeFastqPacker:
 
     def _feed_par(self, buf: np.ndarray):
         """OMP two-pass parse of a whole-lines buffer (hulk_pack_fastq_par):
-        one [nreads, stride] pair out, rows identical to the serial loop."""
-        nlines = self._lib.hulk_count_lines(_ptr(buf), buf.shape[0])
-        cap = nlines // 4 + 2
-        while True:
-            codes = self._codes_buf(cap)
-            lengths = np.zeros(cap, dtype=np.int32)
-            consumed = np.zeros(1, dtype=np.int64)
-            phase_out = np.zeros(1, dtype=np.int32)
-            n = self._lib.hulk_pack_fastq_par(
-                _ptr(buf), buf.shape[0], int(self.phase[0]), _ptr(codes),
-                _ptr(lengths), cap, self.stride, _ptr(consumed),
-                _ptr(phase_out),
-            )
-            if n < 0:
-                raise RuntimeError(
-                    "native parser overflow despite cap sized from "
-                    "hulk_count_lines"
+        one [nreads, stride] pair out, rows identical to the serial loop.
+        The native calls, retries included, are an `input.parse_par` span;
+        the counters `input.parse_par_calls` and `input.parse_team_threads`
+        add one and the team the pack ran with."""
+        team = np.zeros(1, dtype=np.int32)
+        overflow = False
+        with spans.part("input.parse_par"):
+            nlines = self._lib.hulk_count_lines(_ptr(buf), buf.shape[0])
+            cap = nlines // 4 + 2
+            while True:
+                codes = self._codes_buf(cap)
+                lengths = np.zeros(cap, dtype=np.int32)
+                consumed = np.zeros(1, dtype=np.int64)
+                phase_out = np.zeros(1, dtype=np.int32)
+                n = self._lib.hulk_pack_fastq_par(
+                    _ptr(buf), buf.shape[0], int(self.phase[0]), _ptr(codes),
+                    _ptr(lengths), cap, self.stride, _ptr(consumed),
+                    _ptr(phase_out), _ptr(team),
                 )
-            if n and int(lengths[:n].max()) >= self.stride:
-                if self.stride >= self.cap_len:
-                    # oversize sequence line(s): line-level parse, LongSeq
-                    # emission in order (phase untouched by the failed
-                    # attempts — the par parser commits it only on success)
-                    return self._feed_overflow(buf)
-                self.stride = min(self.stride * 4, self.cap_len)
-                continue
-            break
+                if n < 0:
+                    raise RuntimeError(
+                        "native parser overflow despite cap sized from "
+                        "hulk_count_lines"
+                    )
+                if n and int(lengths[:n].max()) >= self.stride:
+                    if self.stride >= self.cap_len:
+                        overflow = True
+                        break
+                    self.stride = min(self.stride * 4, self.cap_len)
+                    continue
+                break
+        spans.count("input.parse_par_calls")
+        spans.count("input.parse_team_threads", int(team[0]))
+        if overflow:
+            # oversize sequence line(s): line-level parse, LongSeq emission
+            # in order (phase untouched by the failed attempts — the par
+            # parser commits it only on success)
+            return self._feed_overflow(buf)
         if int(consumed[0]) != buf.shape[0]:  # buffer must end on a newline
             raise RuntimeError(
                 "native parser consumed a partial buffer "

@@ -27,7 +27,9 @@
 #else
 static inline int omp_get_num_threads() { return 1; }
 static inline int omp_get_thread_num() { return 0; }
+static inline int omp_get_max_threads() { return 1; }
 #endif
+#include <atomic>
 
 #if defined(__SSE2__)
 #include <xmmintrin.h>
@@ -163,14 +165,18 @@ static inline double gorand_f64(GoRand* g) {
     }
 }
 
-// Honour the CLI's -p/--processors for host-side parallel passes (the
-// reference's NumMinions = p semantics, cmd/sketch.go:140).
+// The team of every parallel region in this file, in whichever thread the
+// region runs: the CLI's -p/--processors, as GOMAXPROCS bounds the
+// reference's whole process (cmd/sketch.go:140, 198-201). An OpenMP count
+// set with omp_set_num_threads would reach the calling thread only, and the
+// parse, the group pack and the flush run in threads of their own. Until
+// hulk_set_threads is called, the loading thread's OpenMP count.
+static std::atomic<int32_t> g_threads{(int32_t)omp_get_max_threads()};
+
+static inline int hulk_team() { return g_threads.load(std::memory_order_relaxed); }
+
 void hulk_set_threads(int32_t n) {
-#ifdef _OPENMP
-    if (n > 0) omp_set_num_threads(n);
-#else
-    (void)n;
-#endif
+    if (n > 0) g_threads.store(n, std::memory_order_relaxed);
 }
 
 double hulk_gorand_float64(GoRand* g) { return gorand_f64(g); }
@@ -262,7 +268,7 @@ void hulk_flush_exact(int64_t n, const int64_t* bins, const double* freqs,
     double* vals = new double[n * depth];
     double* lf = new double[n];
 
-    #pragma omp parallel
+    #pragma omp parallel num_threads(hulk_team())
     {
         const int nt = omp_get_num_threads();
         const int t = omp_get_thread_num();
@@ -300,7 +306,7 @@ void hulk_flush_exact(int64_t n, const int64_t* bins, const double* freqs,
 #endif
     }
 
-    #pragma omp parallel for schedule(static)
+    #pragma omp parallel for schedule(static) num_threads(hulk_team())
     for (int64_t i = 0; i < n; i++) {
         double esti = 1.7976931348623157e+308;
         for (int64_t d = 0; d < depth; d++) {
@@ -310,7 +316,7 @@ void hulk_flush_exact(int64_t n, const int64_t* bins, const double* freqs,
         lf[i] = hulk_go_log(esti);
     }
 
-    #pragma omp parallel for schedule(static)
+    #pragma omp parallel for schedule(static) num_threads(hulk_team())
     for (int64_t j = 0; j < s; j++) {
         double wj = weights[j];
         uint64_t sk = sketch[j];
@@ -1131,17 +1137,18 @@ int64_t hulk_pack_fasta(const uint8_t* buf, int64_t len, int32_t* state_io,
 // ---------------------------------------------------------------------------
 // Parallel FASTQ parse (OMP two-pass; VERDICT r3 item 2)
 // ---------------------------------------------------------------------------
-// The serial parser above tops out ~1.4 GB/s on one core; at p=2 these split
-// the chunk across threads. Pass 1 counts newlines per byte-slice (memchr
-// speed); a serial prefix sum gives each slice its starting global line
-// index; pass 2 re-walks each slice's TERMINATORS (a line belongs to the
-// slice holding its '\n'), deriving each sequence line's read row from its
-// global line index — so rows land exactly where the serial parser would
-// put them, in parallel, with no cross-thread ordering.
+// The serial parser above tops out ~1.4 GB/s on one core; at -p 2 or more
+// these split the chunk across threads. Pass 1 counts newlines per
+// byte-slice (memchr speed); a serial prefix sum gives each slice its
+// starting global line index; pass 2 re-walks each slice's TERMINATORS (a
+// line belongs to the slice holding its '\n'), deriving each sequence
+// line's read row from its global line index — so rows land exactly where
+// the serial parser would put them, in parallel, with no cross-thread
+// ordering.
 
 int64_t hulk_count_lines(const uint8_t* buf, int64_t len) {
     int64_t total = 0;
-    #pragma omp parallel reduction(+:total)
+    #pragma omp parallel reduction(+:total) num_threads(hulk_team())
     {
         const int nt = omp_get_num_threads();
         const int t = omp_get_thread_num();
@@ -1165,23 +1172,21 @@ int64_t hulk_count_lines(const uint8_t* buf, int64_t len) {
 // longer than stride-1 are truncated to stride (caller detects
 // lengths >= stride and retries wider, same protocol as hulk_pack_fastq).
 // cap_reads must be >= the number of sequence lines (from hulk_count_lines).
+// *team_out = the threads pass 2 actually ran with (the host may give fewer
+// than asked).
 int64_t hulk_pack_fastq_par(const uint8_t* buf, int64_t len, int32_t phase,
                             uint8_t* codes, int32_t* lengths,
                             int64_t cap_reads, int64_t stride,
-                            int64_t* consumed_out, int32_t* phase_out) {
+                            int64_t* consumed_out, int32_t* phase_out,
+                            int32_t* team_out) {
     nt4_init();
     const int64_t o = (int64_t)((1 - phase) & 3);  // global idx of 1st seq line
-    int64_t nthreads = 1;
-    #ifdef _OPENMP
-    nthreads = omp_get_max_threads();
-    #endif
-    // Fixed slice count independent of the actual OMP team size, so pass 1
-    // and pass 2 always agree on slice boundaries.
-    if (nthreads > 64) nthreads = 64;
-    const int64_t S = nthreads;
+    // A slice a thread of -p, fixed before either pass and independent of
+    // the team OpenMP actually gives, so both passes agree on the slices.
+    const int64_t S = hulk_team() < 64 ? hulk_team() : 64;
     int64_t counts[64] = {0};
     // pass 1: newline count per byte-slice
-    #pragma omp parallel for schedule(static, 1)
+    #pragma omp parallel for schedule(static, 1) num_threads(S)
     for (int64_t s = 0; s < S; s++) {
         const int64_t b0 = len * s / S, b1 = len * (s + 1) / S;
         int64_t c = 0;
@@ -1203,8 +1208,10 @@ int64_t hulk_pack_fastq_par(const uint8_t* buf, int64_t len, int32_t phase,
     if (nreads > cap_reads) return -1;  // caller sized via hulk_count_lines
     // pass 2: pack sequence lines, each slice handling lines whose '\n' it owns
     int64_t last_nl = -1;
-    #pragma omp parallel for schedule(static, 1) reduction(max:last_nl)
+    int32_t team = 0;
+    #pragma omp parallel for schedule(static, 1) num_threads(S) reduction(max:last_nl, team)
     for (int64_t s = 0; s < S; s++) {
+        team = omp_get_num_threads();
         const int64_t b0 = len * s / S, b1 = len * (s + 1) / S;
         int64_t g = base[s];  // global line index of the first '\n' in slice
         // line start: after the last newline before b0 (scan back; FASTQ
@@ -1233,6 +1240,7 @@ int64_t hulk_pack_fastq_par(const uint8_t* buf, int64_t len, int32_t phase,
     }
     *consumed_out = total_lines ? last_nl + 1 : 0;
     *phase_out = (int32_t)((phase + total_lines) & 3);
+    *team_out = team;
     return nreads;
 }
 
@@ -1255,7 +1263,7 @@ void hulk_pack_group_batch(const uint8_t* codes, int64_t rows_live,
                            int64_t stride, const int32_t* lengths, int64_t R,
                            int64_t L, uint8_t* out_codes, uint8_t* out_lens) {
     const int64_t L2 = (L + 1) / 2;
-    #pragma omp parallel for schedule(static)
+    #pragma omp parallel for schedule(static) num_threads(hulk_team())
     for (int64_t r = 0; r < R; r++) {
         uint8_t* dst = out_codes + r * L2;
         if (r >= rows_live) {
@@ -1322,13 +1330,16 @@ static inline void pack2_vector(const uint8_t* s, int64_t n, uint8_t* dst, uint8
 }
 #endif
 
-void hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
-                            int64_t stride, const int32_t* lengths, int64_t R,
-                            int64_t L, uint8_t* out_codes, uint8_t* out_mask,
-                            uint8_t* out_lens) {
+// Returns the threads the pack actually ran with.
+int32_t hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
+                               int64_t stride, const int32_t* lengths, int64_t R,
+                               int64_t L, uint8_t* out_codes, uint8_t* out_mask,
+                               uint8_t* out_lens) {
     const int64_t L4 = L / 4, L8 = L / 8;
-    #pragma omp parallel for schedule(static)
+    int32_t team = 0;
+    #pragma omp parallel for schedule(static) num_threads(hulk_team()) reduction(max:team)
     for (int64_t r = 0; r < R; r++) {
+        team = omp_get_num_threads();
         uint8_t* dst = out_codes + r * L4;
         uint8_t* msk = out_mask + r * L8;
         if (r >= rows_live) {
@@ -1383,17 +1394,18 @@ void hulk_pack_group_batch2(const uint8_t* codes, int64_t rows_live,
         out_lens[r * 2] = (uint8_t)(l16 & 0xFF);
         out_lens[r * 2 + 1] = (uint8_t)(l16 >> 8);
     }
+    return team;
 }
 
 // Parallel first-touch of a fresh allocation: faulting 100s of MB of 4 KB
 // pages measures ~17 us/page here (~2 s for 500 MB) when it happens serially
 // inside the decompressor. THP is in madvise mode on this kernel, so ask for
-// 2 MB pages first (~500x fewer faults), then fault everything in from both
-// cores off the critical path.
+// 2 MB pages first (~500x fewer faults), then fault everything in with the
+// -p team off the critical path.
 void hulk_touch_pages(uint8_t* buf, int64_t n) {
     const uintptr_t a = (uintptr_t)buf & ~(uintptr_t)4095;
     madvise((void*)a, (size_t)(n + ((uintptr_t)buf - a)), MADV_HUGEPAGE);
-    #pragma omp parallel for schedule(static)
+    #pragma omp parallel for schedule(static) num_threads(hulk_team())
     for (int64_t i = 0; i < n; i += 4096) buf[i] = 0;
 }
 

@@ -3,14 +3,15 @@
 Off by default: `span()` returns one shared null context after a single
 flag check, and `count()` returns at once. Once `enable(True)`, a span
 records its name, start and end on `time.perf_counter()`, its id, its
-parent's id (the span open around it on its thread; for a thread's
-outermost spans, the span that started the thread or submitted the task,
-handed over by `carry()`), its job's id (the root span's) and its thread's
-name, in one list in memory until `reset()`. On a thread that a running
-torch.profiler records, a span also enters `record_function(name)`, so it
-lies in the Chrome trace on the kernels' clock; elsewhere the range would
-be dropped, at tens of microseconds a span where threads contend for the
-interpreter. PERF.md names each span and counter with its metric.
+parent's id (the span open around it on its thread, or for a `part()` that
+span's parent; for a thread's outermost spans, the span that started the
+thread or submitted the task, handed over by `carry()`), its job's id (the
+root span's) and its thread's name, in one list in memory until `reset()`.
+On a thread that a running torch.profiler records, a span also enters
+`record_function(name)`, so it lies in the Chrome trace on the kernels'
+clock; elsewhere the range would be dropped, at tens of microseconds a span
+where threads contend for the interpreter. PERF.md names each span and
+counter with its metric.
 """
 from __future__ import annotations
 
@@ -32,16 +33,20 @@ _local = threading.local()
 
 
 class _Span:
-    __slots__ = ("name", "id", "parent", "job", "t0", "t1", "_rf")
+    __slots__ = ("name", "id", "up", "parent", "job", "t0", "t1", "_rf", "_lift")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, lift: bool = False):
         self.name = name
+        self._lift = lift
 
     def __enter__(self):
         from torch.autograd import _profiler_enabled
         from torch.autograd.profiler import record_function
 
         up = _current()
+        if self._lift and up is not None:
+            up = up.up
+        self.up = up
         self.id = next(_ids)
         self.parent, self.job = (up.id, up.job) if up is not None else (None, self.id)
         _local.__dict__.setdefault("stack", []).append(self)
@@ -95,6 +100,15 @@ def span(name: str):
     if not _on:
         return _NULL
     return _Span(name)
+
+
+def part(name: str):
+    """A span `name` that lies within the thread's current span in time but
+    hangs on that span's parent, so that the current span's self time still
+    holds it: a part of a span's own work, timed on its own."""
+    if not _on:
+        return _NULL
+    return _Span(name, lift=True)
 
 
 def timed(name: str, fn) -> tuple[float, float]:

@@ -35,7 +35,7 @@ sys.path.insert(0, os.getcwd())
 import numpy as np  # noqa: E402
 
 SPANS = ("stream.step", "stream.pack", "stream.sync", "stream.loop", "stream.input_wait",
-         "input.gunzip", "input.parse", "input.chunk_wait")
+         "input.gunzip", "input.parse", "input.chunk_wait", "input.parse_par")
 
 
 def _inside(se: np.ndarray, ranges: np.ndarray) -> np.ndarray:

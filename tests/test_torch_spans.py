@@ -225,3 +225,26 @@ def test_the_profiler_holds_the_stream_threads_spans_on_its_clock(reads, tmp_pat
             least.append(lo - a)
             most.append(hi - b)
     assert max(least) <= min(most) + 1e-3
+
+
+def test_a_part_hangs_on_its_enclosing_spans_parent(spans_on):
+    """spans.part: inside a span in time, a child of that span's parent, so
+    that the span's self time (hulkbench.spans.self_seconds) keeps it; with
+    no span around it, a root; off, the shared null context."""
+    from hulkbench.spans import self_seconds
+
+    with spans.span("job"):
+        with spans.span("input.parse") as outer:
+            with spans.part("input.parse_par") as inner:
+                pass
+    with spans.part("alone"):
+        pass
+    recs = {r.name: r for r in spans.records()}
+    assert recs["input.parse_par"].parent == recs["job"].id == recs["input.parse"].parent
+    assert recs["input.parse_par"].job == recs["job"].id
+    assert outer.t0 <= inner.t0 <= inner.t1 <= outer.t1
+    assert self_seconds(list(recs.values()), "input.parse", 0.0, 1e12) == \
+        pytest.approx(outer.t1 - outer.t0)
+    assert recs["alone"].parent is None
+    spans.enable(False)
+    assert spans.part("a") is spans.span("b")
