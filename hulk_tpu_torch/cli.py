@@ -253,6 +253,7 @@ def _sketch_job(args) -> None:
         checkpoint_path=args.checkpoint or None,
         resume_from=args.resume or None,
         interval_secondary=args.stream_all,
+        processors=args.processors,
     )
 
     # several processes: each takes a static shard of the files; the

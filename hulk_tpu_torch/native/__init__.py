@@ -6,7 +6,8 @@ Builds hulkrt.cpp with g++ on first use into the package's build directory
   * GoRand + CWS table fill (native, ~50x faster than the Python generator)
   * hulk_flush_exact (the full exact flush loop)
   * hulk_pack_fastq (FASTQ line parser + code packer)
-  * hulk_inflate_members (gzip members inflated into caller-owned memory)
+  * hulk_inflate_range (gzip members inflated into caller-owned memory) and
+    hulk_next_member (a guess at where a member starts)
 
 Everything has a pure-Python fallback; `available()` reports whether the
 native library loaded.
@@ -95,11 +96,15 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p,
     ]
-    lib.hulk_inflate_members.restype = ctypes.c_int64
-    lib.hulk_inflate_members.argtypes = [
+    lib.hulk_inflate_range.restype = ctypes.c_int64
+    lib.hulk_inflate_range.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.hulk_next_member.restype = ctypes.c_int64
+    lib.hulk_next_member.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
     ]
     lib.hulk_pack_group_batch.restype = None
     lib.hulk_pack_group_batch.argtypes = [
@@ -184,26 +189,39 @@ def flush_exact_native(bins, freqs, row_bins, cms, c_t, b_t, er_t, sketch,
 # ---- gzip inflate -----------------------------------------------------------
 
 def inflate_members(src: np.ndarray, pos: int, out: np.ndarray,
-                    want: int) -> tuple[int, int, int]:
+                    want: int, stop: int | None = None) -> tuple[int, int, int]:
     """Inflate whole gzip members of `src` (uint8) from offset `pos` into
-    `out`, until `out` holds at least `want` bytes or `src` ends
-    (hulk_inflate_members, hulkrt.cpp's own DEFLATE decoder; the GIL is
-    released meanwhile). Returns (bytes written, the offset of the first
-    member not inflated, the inflated size of the last member inflated).
-    Bytes written is -2 when the member at `pos` does not fit in `out`, -1
-    when it is not clean gzip (header, data, CRC-32 or size); the offset is
-    then that member's."""
+    `out`, while a member starts before `stop` (the end of `src` when None)
+    and `out` holds fewer than `want` bytes (hulk_inflate_range,
+    hulkrt.cpp's own DEFLATE decoder; the GIL is released meanwhile).
+    Returns (bytes written, the offset of the first member not inflated,
+    the inflated size of the last member inflated). Bytes written is -2
+    when the member at `pos` does not fit in `out`, -1 when it is not clean
+    gzip (header, data, CRC-32 or size); the offset is then that
+    member's."""
     for a in (src, out):
         if a.dtype != np.uint8 or a.ndim != 1 or not a.flags.c_contiguous:
             raise ValueError("inflate_members takes contiguous 1-D uint8 arrays")
     if not 0 <= pos <= src.shape[0]:
         raise ValueError(f"inflate_members: offset {pos} outside 0..{src.shape[0]}")
     p, last = ctypes.c_int64(pos), ctypes.c_int64(0)
-    n = _load().hulk_inflate_members(
-        _ptr(src), src.shape[0], ctypes.byref(p), _ptr(out), out.shape[0],
+    n = _load().hulk_inflate_range(
+        _ptr(src), src.shape[0], ctypes.byref(p),
+        src.shape[0] if stop is None else stop, _ptr(out), out.shape[0],
         want, ctypes.byref(last),
     )
     return int(n), p.value, last.value
+
+
+def next_member(src: np.ndarray, start: int, stop: int) -> int:
+    """The first offset in [start, stop) of `src` where a gzip member could
+    start (hulk_next_member: its header parses and its first block's type is
+    valid), or `stop`: a guess, which compressed or stored data can fool."""
+    if src.dtype != np.uint8 or src.ndim != 1 or not src.flags.c_contiguous:
+        raise ValueError("next_member takes a contiguous 1-D uint8 array")
+    if not 0 <= start <= stop:
+        raise ValueError(f"next_member: range {start}..{stop} is not one")
+    return int(_load().hulk_next_member(_ptr(src), src.shape[0], start, stop))
 
 
 def touch_pages(a: np.ndarray) -> None:

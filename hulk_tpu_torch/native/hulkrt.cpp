@@ -953,40 +953,48 @@ static uint32_t inf_crc_update(uint32_t c, const uint8_t* p, int64_t n) {
     return c;
 }
 
+// The offset of the DEFLATE data of a gzip member whose header starts at
+// in[p]: ID1 ID2 CM = 1f 8b 08, FLG bits 5-7 clear, its optional fields
+// (FEXTRA, FNAME, FCOMMENT, FHCRC) within the input and room for a trailer;
+// -1 where that is not so.
+static int64_t inf_header(const uint8_t* in, int64_t in_n, int64_t p) {
+    const uint8_t* h = in + p;
+    if (in_n - p < 18 || h[0] != 0x1f || h[1] != 0x8b || h[2] != 8 || (h[3] & 0xe0))
+        return -1;
+    const uint8_t flg = h[3];
+    int64_t q = p + 10;
+    if ((flg & 4) && in_n - q >= 2) q += 2 + (in[q] | (int64_t)in[q + 1] << 8);
+    else if (flg & 4) q = in_n;
+    for (int bit = 8; bit <= 16; bit <<= 1) {
+        if (!(flg & bit)) continue;
+        while (q < in_n && in[q]) q++;
+        q++;
+    }
+    if (flg & 2) q += 2;
+    return q < in_n ? q : -1;
+}
+
 // Inflate whole gzip members from in[*pos, in_n) into out[0, cap), member
-// after member, until out holds at least `want` bytes or the input ends.
-// NUL padding after a member is skipped (some writers pad the file). Returns
-// the bytes written and leaves *pos at the first member not inflated; *last
-// gets the inflated size of the last member inflated. A member that does not
-// fit, or is not clean gzip (its header, data, CRC-32 or size), ends the call
-// there; if it is the first, the call returns -2 (does not fit) or -1 (not
-// clean gzip) and *pos is that member's offset. Each call has its own
-// decoder state, so threads may inflate at once.
-int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
-                             uint8_t* out, int64_t cap, int64_t want,
-                             int64_t* last) {
+// after member, while a member starts before `stop` and out holds fewer
+// than `want` bytes. NUL padding after a member is skipped (some writers pad
+// the file). Returns the bytes written and leaves *pos at the first member
+// not inflated; *last gets the inflated size of the last member inflated. A
+// member that does not fit, or is not clean gzip (its header, data, CRC-32
+// or size), ends the call there; if it is the first, the call returns -2
+// (does not fit) or -1 (not clean gzip) and *pos is that member's offset.
+// Each call has its own decoder state, so threads may inflate at once.
+int64_t hulk_inflate_range(const uint8_t* in, int64_t in_n, int64_t* pos,
+                           int64_t stop, uint8_t* out, int64_t cap,
+                           int64_t want, int64_t* last) {
     Inflater* st = new Inflater;
     int64_t p = *pos, n = 0, rc = 0;
-    while (p < in_n && n < want) {
+    while (p < in_n && p < stop && n < want) {
         int r = INF_BAD_DATA;
-        int64_t q = p + 10, used_in = 0, used_out = 0;
+        int64_t q = inf_header(in, in_n, p), used_in = 0, used_out = 0;
         uint32_t crc = 0;
-        const uint8_t* h = in + p;
-        if (in_n - p >= 18 && h[0] == 0x1f && h[1] == 0x8b && h[2] == 8 &&
-            !(h[3] & 0xe0)) {
-            const uint8_t flg = h[3];
-            if ((flg & 4) && in_n - q >= 2) q += 2 + (in[q] | (int64_t)in[q + 1] << 8);
-            else if (flg & 4) q = in_n;
-            for (int bit = 8; bit <= 16; bit <<= 1) {
-                if (!(flg & bit)) continue;
-                while (q < in_n && in[q]) q++;
-                q++;
-            }
-            if (flg & 2) q += 2;
-            if (q < in_n)
-                r = inflate_stream(st, in + q, in_n - q, out + n, cap - n,
-                                   &used_in, &used_out, &crc);
-        }
+        if (q >= 0)
+            r = inflate_stream(st, in + q, in_n - q, out + n, cap - n,
+                               &used_in, &used_out, &crc);
         if (r == INF_OK) {
             q += used_in;
             if (in_n - q < 8 ||
@@ -1008,6 +1016,33 @@ int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
     delete st;
     *pos = p;
     return rc < 0 ? rc : n;
+}
+
+// hulk_inflate_range to the input's end: the entry of earlier trees, which
+// scripts/inflate_retime.py times in this tree and another alike.
+int64_t hulk_inflate_members(const uint8_t* in, int64_t in_n, int64_t* pos,
+                             uint8_t* out, int64_t cap, int64_t want,
+                             int64_t* last) {
+    return hulk_inflate_range(in, in_n, pos, in_n, out, cap, want, last);
+}
+
+// The first offset in [from, stop) where a gzip member could start: a
+// header inf_header takes, followed by a DEFLATE block of a valid type (not
+// 3); `stop` where there is none. Compressed or stored data may hold such
+// bytes too, so a member found here is only a guess at a boundary, which the
+// caller checks against the exact end of the members before it.
+int64_t hulk_next_member(const uint8_t* in, int64_t in_n, int64_t from,
+                         int64_t stop) {
+    if (stop > in_n) stop = in_n;
+    for (int64_t p = from; p < stop;) {
+        const void* hit = memchr(in + p, 0x1f, (size_t)(stop - p));
+        if (!hit) break;
+        p = (const uint8_t*)hit - in;
+        const int64_t q = inf_header(in, in_n, p);
+        if (q >= 0 && ((in[q] >> 1) & 3) != 3) return p;
+        p++;
+    }
+    return stop;
 }
 
 // ---------------------------------------------------------------------------

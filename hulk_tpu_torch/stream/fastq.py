@@ -16,9 +16,11 @@ import mmap
 import os
 import sys
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, NamedTuple
 
 import numpy as np
 
@@ -208,7 +210,8 @@ def _skip_lines(chunks: Iterator[bytes], n_lines: int, drop=None) -> Iterator[by
 # buffers (_InflatePool). A member whose inflated size passes _INFLATE_CAP
 # (what the old whole-file route could allocate: 8x a 128 MB file), and a
 # file whose gzip trailer says its last member does, take zlib instead, from
-# that member on.
+# that member on. At -p > 1 the members after the first step inflate as
+# ordered tasks on up to p threads (_Members.ahead).
 _INFLATE_CAP = 1 << 30
 _INFLATE_MIN = 32 << 20  # a pool buffer's least size
 _INFLATE_STEP = 4 << 20  # a step inflates whole members until it holds this
@@ -275,12 +278,151 @@ class _InflatePool:
         self._closed = True
 
 
-def _chunks_of(path: str, pool: _InflatePool) -> Iterator:
+class _Task(NamedTuple):
+    """What one inflate task gave: the offset of its first member, the
+    offset of the first member it did not take, the bytes written (or -1,
+    -2 as native.inflate_members gives them) and the last member's inflated
+    size."""
+
+    start: int
+    end: int
+    n: int
+    last: int
+
+
+def _inflate_task(src: np.ndarray, start: int, stop: int, buf: np.ndarray,
+                  scan: bool) -> _Task:
+    """Inflate the members of src that start in [start, stop), in a worker
+    thread, as an `input.gunzip` span. A scanned task starts at the first
+    place native.next_member finds in the range whose member inflates clean
+    (-2 ends the search too); a task that finds none is empty (start ==
+    end == stop)."""
+    from hulk_tpu_torch import native
+
+    with spans.span("input.gunzip"):
+        while True:
+            if scan:
+                start = native.next_member(src, start, stop)
+                if start >= stop:
+                    return _Task(stop, stop, 0, 0)
+            n, end, last = native.inflate_members(
+                src, start, buf[:_INFLATE_CAP], 1 << 62, stop)
+            if n != -1 or not scan:
+                return _Task(start, end, n, last)
+            start += 1
+
+
+class _Members:
+    """One .gz file's member route. `pos` is exact: the offset of the first
+    member not yet inflated, the end of the members yielded before it.
+    `state` says why the last walk ended: "end" (pos reached its stop),
+    "bad" (the member at pos is not clean gzip or passes the cap: zlib takes
+    over from pos) or "closed" (the consumer left)."""
+
+    def __init__(self, src: np.ndarray, pool: _InflatePool, last: int):
+        self.src, self.pool, self.last = src, pool, last
+        self.pos = 0
+        self.state = "end"
+
+    def _buffer(self) -> np.ndarray | None:
+        buf = self.pool.take(min(_INFLATE_CAP, max(_INFLATE_MIN, 2 * self.last)))
+        if buf is None:
+            self.state = "closed"
+        return buf
+
+    def exact(self, stop: int, once: bool = False) -> Iterator:
+        """Steps of whole members from pos in this thread, each an
+        `input.gunzip` span that inflates until it holds _INFLATE_STEP
+        bytes, while pos < stop (one step when `once`)."""
+        from hulk_tpu_torch import native
+
+        while self.pos < stop:
+            buf = self._buffer()
+            if buf is None:
+                return
+            with spans.span("input.gunzip"):
+                n, at, got = native.inflate_members(
+                    self.src, self.pos, buf[:_INFLATE_CAP], _INFLATE_STEP, stop)
+                if n == -2 and buf.shape[0] < _INFLATE_CAP:
+                    buf = self.pool.grow(buf, _INFLATE_CAP)
+                    n, at, got = native.inflate_members(
+                        self.src, self.pos, buf, _INFLATE_STEP, stop)
+            self.pos = at
+            if n < 0:
+                self.pool.give(buf)
+                self.state = "bad"
+                return
+            spans.count("input.inflate_member_bytes", n)
+            self.last = got
+            yield buf[:n]
+            if once:
+                return
+
+    def ahead(self, workers: int, span: int) -> Iterator:
+        """The members from pos to the end as ordered tasks on up to
+        `workers` threads, started once for the file: consecutive ranges of
+        `span` compressed bytes, the first from the exact pos, each later one
+        from the first member native.next_member finds in it. A task's bytes
+        are yielded only when its start equals pos, the exact end of what
+        was yielded before it; otherwise they are dropped (a guess fooled by
+        compressed or stored data, or a member it could not take) and this
+        thread inflates the range from pos itself (`exact`). So the bytes
+        are the one-thread walk's, whatever the input. The wait for the next
+        task in order is an `input.inflate_wait` span; the counters
+        `input.inflate_tasks` (tasks whose bytes were yielded),
+        `input.inflate_ahead_bytes` (their bytes, of tasks that started at a
+        guess) and `input.inflate_ahead_misses` (guesses dropped) count the
+        route."""
+        size = self.src.shape[0]
+        reach = self.pos  # where the next task's range starts
+        tasks: deque = deque()  # (future, stop, buffer, guessed), in file order
+        ex = ThreadPoolExecutor(workers, thread_name_prefix="hulk-inflate")
+        try:
+            while True:
+                while len(tasks) < workers and reach < size:
+                    buf = self._buffer()
+                    if buf is None:
+                        return
+                    stop, guessed = min(size, reach + span), reach != self.pos
+                    fut = ex.submit(spans.carry(_inflate_task), self.src, reach,
+                                    stop, buf, guessed)
+                    tasks.append((fut, stop, buf, guessed))
+                    reach = stop
+                if not tasks:
+                    return
+                fut, stop, buf, guessed = tasks.popleft()
+                with spans.span("input.inflate_wait"):
+                    t = fut.result()
+                if t.n >= 0 and t.start == self.pos and t.end > t.start:
+                    spans.count("input.inflate_tasks")
+                    spans.count("input.inflate_member_bytes", t.n)
+                    if guessed:
+                        spans.count("input.inflate_ahead_bytes", t.n)
+                    self.pos, self.last = t.end, t.last
+                    yield buf[:t.n]
+                else:
+                    if guessed and t.start < stop:
+                        spans.count("input.inflate_ahead_misses")
+                    self.pool.give(buf)
+                yield from self.exact(stop)
+                if self.state != "end":
+                    return
+        finally:
+            for fut, *_ in tasks:
+                fut.cancel()
+            ex.shutdown(wait=True)  # no worker writes a buffer after this
+            for _, _, buf, _ in tasks:
+                self.pool.give(buf)
+
+
+def _chunks_of(path: str, pool: _InflatePool, workers: int = 1) -> Iterator:
     """The decompressed bytes of one input file, a step at a time, each step
     an `input.gunzip` span. A .gz inflates member by member in the native
-    inflater into pool buffers, and yields views of them; zlib (Python's
-    gzip) takes over from a member too large for _INFLATE_CAP, or from the
-    start when the gzip trailer's size (ISIZE, the last member's, mod 2**32)
+    inflater into pool buffers, and yields views of them: in this thread at
+    `workers` 1, and after a first step here on up to `workers` threads
+    (_Members.ahead) otherwise, with the same bytes. zlib (Python's gzip)
+    takes over from a member too large for _INFLATE_CAP, or from the start
+    when the gzip trailer's size (ISIZE, the last member's, mod 2**32)
     passes it, and from a member the native inflater finds bad, so that a
     bad file raises what Python's gzip raises. The counters
     `input.inflate_member_bytes` and `input.inflate_zlib_bytes` count each
@@ -300,25 +442,13 @@ def _chunks_of(path: str, pool: _InflatePool) -> Iterator:
         src = np.frombuffer(mm, dtype=np.uint8)
         last = int.from_bytes(mm[-4:], "little") if size >= 18 else 0
         if last <= _INFLATE_CAP:
-            while pos < size:
-                buf = pool.take(min(_INFLATE_CAP, max(_INFLATE_MIN, 2 * last)))
-                if buf is None:
-                    return
-                with spans.span("input.gunzip"):
-                    n, at, got = native.inflate_members(
-                        src, pos, buf[:_INFLATE_CAP], _INFLATE_STEP)
-                    if n == -2 and buf.shape[0] < _INFLATE_CAP:
-                        buf = pool.grow(buf, _INFLATE_CAP)
-                        n, at, got = native.inflate_members(src, pos, buf, _INFLATE_STEP)
-                pos = at
-                if n < 0:
-                    pool.give(buf)
-                    break
-                spans.count("input.inflate_member_bytes", n)
-                last = got
-                yield buf[:n]
-            else:
+            members = _Members(src, pool, last)
+            yield from members.exact(size, once=workers > 1)
+            if members.state == "end" and members.pos < size:
+                yield from members.ahead(workers, members.pos)
+            if members.state == "closed" or members.pos >= size:
                 return
+            pos = members.pos
     with open(path, "rb") as fh:
         fh.seek(pos)
         yield from _read_chunks(gzip.GzipFile(fileobj=fh, mode="rb"),
@@ -349,6 +479,7 @@ def batch_reads_native(
     skip_reads: int = 0,
     progress: dict | None = None,
     raw: bool = False,
+    inflate_workers: int = 1,
 ) -> Iterator[PackedReads]:
     """FASTQ/FASTA batches via the native C++ parser/packer (files only).
 
@@ -373,6 +504,9 @@ def batch_reads_native(
     for the single-device stream, whose native group packer applies the
     identical pad-5 semantics during nibble-packing — bit-identical device
     input, ~2 fewer full host passes per batch.
+
+    inflate_workers (the CLI's -p) is the most threads that inflate one
+    .gz's members at once; at 1 the gunzip thread alone inflates them.
     """
     from hulk_tpu_torch import native
 
@@ -462,9 +596,9 @@ def batch_reads_native(
         # the inflate in its own thread (the native inflater and zlib
         # release the GIL), overlapped with native packing here; its
         # buffers come back to the pool once the packer is done with each
-        # chunk
-        pool = _InflatePool(_PREFETCH + 2)
-        chunk_src = _chunks_of(p, pool)
+        # chunk; each inflate worker past the first holds one more
+        pool = _InflatePool(_PREFETCH + 1 + inflate_workers)
+        chunk_src = _chunks_of(p, pool, inflate_workers)
         if fi == start_file and skip_reads:
             chunk_src = _skip_lines(chunk_src, 4 * skip_reads, pool.give)
         chunks = prefetch_batches(

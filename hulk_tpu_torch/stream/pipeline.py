@@ -116,6 +116,8 @@ class SketchConfig:
     # may name one more than once. None: [device]. Several cards in one
     # process measured slower than one (PERF.md), so none is the default.
     devices: list | None = None
+    # the most threads that inflate one .gz input at once (the CLI's -p)
+    processors: int = 1
 
     def resolved_devices(self) -> list:
         if self.devices is not None:
@@ -641,7 +643,8 @@ def run_sketch_pipeline(
                      resume_origin[0], resume_origin[1])
         batches = batch_reads_native(
             cfg.input_paths, batch_size=cfg.resolved_batch_size(),
-            cut_every=cut, fasta=cfg.fasta, raw=True, **kw,
+            cut_every=cut, fasta=cfg.fasta, raw=True,
+            inflate_workers=cfg.processors, **kw,
         )
     else:
         batches = batch_reads(

@@ -15,7 +15,8 @@ the `stream.step` ranges on the stream thread it sums:
   * the rest: the Python between operations, including each wait to take
     the interpreter lock back after an operation released it.
 With the program's spans, it also gives each thread's busy seconds in the
-window's jobs (self time of the input and stream spans). --switch-interval
+window's jobs (self time of the input and stream spans; `input.gunzip`
+summed over the threads that inflate) and the program's counters. --switch-interval
 sets sys.setswitchinterval for the run: when the rest shrinks with it, the
 rest is the lock's handover, not Python's own work.
 
@@ -35,7 +36,8 @@ sys.path.insert(0, os.getcwd())
 import numpy as np  # noqa: E402
 
 SPANS = ("stream.step", "stream.pack", "stream.sync", "stream.loop", "stream.input_wait",
-         "input.gunzip", "input.parse", "input.chunk_wait", "input.parse_par")
+         "input.gunzip", "input.parse", "input.chunk_wait", "input.parse_par",
+         "input.inflate_wait")
 
 
 def _inside(se: np.ndarray, ranges: np.ndarray) -> np.ndarray:
@@ -107,6 +109,13 @@ def thread_seconds() -> dict:
     return out
 
 
+def _counters() -> dict:
+    """The program's counters over the window (from the readers' start)."""
+    from hulkbench import spans as hs
+
+    return hs.counters()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -149,7 +158,8 @@ def main() -> None:
     res = {"workload": a.workload, "seed": a.seed, "cwd": os.getcwd(),
            "switch_interval": sys.getswitchinterval(), "correct": result["correct"],
            "attempted": result["attempted"], "metrics": result["metrics"],
-           "device": result["device"], "step_split": got, "threads": thread_seconds()}
+           "device": result["device"], "step_split": got, "threads": thread_seconds(),
+           "counters": _counters()}
     line = json.dumps(res)
     if a.json:
         os.makedirs(os.path.dirname(a.json) or ".", exist_ok=True)

@@ -228,8 +228,8 @@ def _count_calls(monkeypatch):
     calls = []
     real = native.inflate_members
 
-    def counted(src, pos, out, want):
-        r = real(src, pos, out, want)
+    def counted(src, pos, out, want, stop=None):
+        r = real(src, pos, out, want, stop)
         calls.append((r[0], out.shape[0]))
         return r
 

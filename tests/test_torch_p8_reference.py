@@ -75,3 +75,37 @@ def test_the_p8_deployment_equals_the_reference_and_p1(caches, tmp_path):
     assert check.compare(got, want) == {"docs_wrong": 0, "mins_mismatched": 0,
                                         "weights_mismatched": 0}
     assert work["bases"] > 0
+
+
+def test_the_p8_deployment_inflates_its_members_on_threads(caches, tmp_path, monkeypatch):
+    """The same files written as members of 500 reads (24 a file), with
+    512 kB inflate steps so that a tiny file holds many: at -p 8 the members
+    after each file's first step inflate as tasks on up to 8 threads, every
+    task from a guessed start chained (no miss), and out.json is -p 1's
+    bytes and the reference's mins and float64 weights bit for bit; at -p 1
+    none of the route's counters is written."""
+    from hulk_tpu_torch.stream import fastq
+
+    cell = tiny_cell("reads-k21.samples-p8")
+    cfg, traffic = cell["config"], cell["traffic"]
+    cfg["input"].update(reads_per_file=12_000, chunk=500)
+    gen = importlib.import_module(f"hulkbench.inputs.{cfg['generator']}")
+    inputs = gen.generate(cfg["input"], 2 ** 31 + 2301, str(tmp_path))
+    monkeypatch.setattr(fastq, "_INFLATE_STEP", 512 << 10)
+    route = ("input.inflate_tasks", "input.inflate_ahead_bytes", "input.inflate_ahead_misses")
+
+    p8, counts = _sketch(cfg, traffic, inputs, str(tmp_path / "p8"))
+    if min(8, os.cpu_count() or 1) > 1:
+        assert counts["input.inflate_tasks"] > 0
+        assert 0 < counts["input.inflate_ahead_bytes"] < counts["input.inflate_member_bytes"]
+        assert "input.inflate_ahead_misses" not in counts
+    p1, counts1 = _sketch(dict(cfg, processors=1), traffic, inputs, str(tmp_path / "p1"))
+    assert not set(route) & set(counts1)
+    assert counts1["input.inflate_member_bytes"] == counts["input.inflate_member_bytes"]
+    assert p8 == p1
+
+    got = check.job_documents(str(tmp_path / "p8"), traffic["stream"])
+    hists, _ = reference(cfg, traffic, inputs, "cpu")
+    want = check.expected_documents(flushes(cfg, traffic, hists), traffic["stream"])
+    assert check.compare(got, want) == {"docs_wrong": 0, "mins_mismatched": 0,
+                                        "weights_mismatched": 0}
